@@ -14,7 +14,7 @@
 // k <= S are handled, so the rare configs that the TPU kernel sends to the
 // XLA path (stride != kernel, or a crop the pool does not tile) run here
 // too. Arithmetic is float32 in the operation order of `_crop_pool_pass`
-// (rounded intrinsics keep nvcc from contracting it into FMAs); the
+// (roi_common.cuh, shared with the backward in roi_pool_bwd.cu); the
 // result is stored in the features' dtype.
 //
 // What bounds it on the H100: bytes. At the serving shapes (features
@@ -29,34 +29,11 @@
 // traffic. Shared-memory tiling of the feature rows and 16-byte vector
 // loads are left for a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "roi_common.cuh"
 
 namespace {
 
-constexpr int kMaxCrop = 64;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// t0 * a + t1 * b, rounded after each operation (no FMA contraction).
-__device__ __forceinline__ float lerp2(float t0, float a, float t1, float b) {
-  return __fadd_rn(__fmul_rn(t0, a), __fmul_rn(t1, b));
-}
+using cap2det::kMaxCrop;
 
 template <typename T>
 __global__ void roi_crop_maxpool_kernel(const T* __restrict__ feat,
@@ -70,31 +47,8 @@ __global__ void roi_crop_maxpool_kernel(const T* __restrict__ feat,
 
   const int p = blockIdx.x;
   const int b = blockIdx.z;
-  const float* box = boxes + ((size_t)b * P + p) * 4;
-
-  // Sample coordinates, as `_precompute_coords`: axis 0 = y, 1 = x.
-  for (int t = threadIdx.x; t < 2 * S; t += blockDim.x) {
-    const int axis = t / S;
-    const int i = t - axis * S;
-    const int extent = axis == 0 ? H : W;
-    const float start = box[axis];
-    const float end = box[axis + 2];
-    const float h_max = (float)(extent - 1);
-    float coord;
-    if (S > 1) {
-      float step = __fmul_rn((float)i, __fsub_rn(end, start));
-      step = __fdiv_rn(__fmul_rn(step, h_max), (float)(S - 1));
-      coord = __fadd_rn(__fmul_rn(start, h_max), step);
-    } else {
-      coord = __fmul_rn(__fmul_rn(__fadd_rn(start, end), 0.5f), h_max);
-    }
-    const float inside = (coord >= 0.0f && coord <= h_max) ? 1.0f : 0.0f;
-    const float idx = fminf(fmaxf(floorf(coord), 0.0f), (float)(extent - 2));
-    const float frac = __fmul_rn(__fsub_rn(coord, idx), inside);
-    s_idx[axis][i] = (int)idx;
-    s_wa[axis][i] = __fmul_rn(__fsub_rn(1.0f, frac), inside);
-    s_wb[axis][i] = __fmul_rn(frac, inside);
-  }
+  cap2det::sample_coords(boxes + ((size_t)b * P + p) * 4, H, W, S, s_idx,
+                         s_wa, s_wb);
   __syncthreads();
 
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
@@ -107,21 +61,12 @@ __global__ void roi_crop_maxpool_kernel(const T* __restrict__ feat,
     for (int ox = 0; ox < pooled; ++ox) {
       float m = -INFINITY;
       for (int ky = 0; ky < pk; ++ky) {
-        const int i = oy * ps + ky;
-        const T* r0 = fb + (size_t)s_idx[0][i] * row;
-        const T* r1 = r0 + row;
-        const float ya = s_wa[0][i];
-        const float yb = s_wb[0][i];
         for (int kx = 0; kx < pk; ++kx) {
-          const int j = ox * ps + kx;
-          const size_t x0 = (size_t)s_idx[1][j] * C;
-          const float t0 = lerp2(to_f32(r0[x0]), ya, to_f32(r1[x0]), yb);
-          const float t1 =
-              lerp2(to_f32(r0[x0 + C]), ya, to_f32(r1[x0 + C]), yb);
-          m = fmaxf(m, lerp2(t0, s_wa[1][j], t1, s_wb[1][j]));
+          m = fmaxf(m, cap2det::crop_sample(fb, row, C, s_idx, s_wa, s_wb,
+                                            oy * ps + ky, ox * ps + kx));
         }
       }
-      ob[(size_t)(oy * pooled + ox) * C] = from_f32<T>(m);
+      ob[(size_t)(oy * pooled + ox) * C] = cap2det::from_f32<T>(m);
     }
   }
 }

@@ -1,10 +1,21 @@
-"""Prediction and detection key constants.
+"""Input, prediction and detection key constants.
 
-The port's own copy of the serving part of ``cap2det_tpu/fields.py``. The
-string keys mirror the reference (core/standard_fields.py:35-132), so the
-port's prediction and detection dicts stay name-compatible with the JAX
-package's. The reader-side keys arrive with the data slice.
+The port's own copy of the parts of ``cap2det_tpu/fields.py`` that serving
+and the training step use. The string keys mirror the reference
+(core/standard_fields.py:35-132), so the port's dicts stay name-compatible
+with the JAX package's. The caption and object keys arrive with the data
+slice.
 """
+
+
+class InputFields:
+    """Keys of a host training batch that the training step reads."""
+
+    image = "image"
+    proposals = "proposals"
+    num_proposals = "number_of_proposals"
+    # Image-level multi-hot labels, extracted on the host.
+    pseudo_labels = "pseudo_labels"
 
 
 class DetectionFields:

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file has a plain C interface. At first use, one nvcc
 process per source compiles it for ``sm_90a``, all started together, and
 one more links the objects into ``libcap2det_kernels.so``. The library
 lives under ``build/torch_kernels/<hash>/`` at the repository root (listed
-in ``.gitignore``), keyed by a hash of the sources and flags, so a changed
+in ``.gitignore``), keyed by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed
 source builds anew and an unchanged one is reused. Nothing outside the
 repository is used except the CUDA toolkit.
 
@@ -66,7 +67,7 @@ def _sources():
 
 def _key(sources):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

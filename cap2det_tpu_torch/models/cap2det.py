@@ -1,9 +1,10 @@
-"""Cap2Det detector, inference (port of ``cap2det_tpu/models/cap2det.py``).
+"""Cap2Det detector (port of ``cap2det_tpu/models/cap2det.py``).
 
 FRCNN proposal features -> MIDN two-branch head + K OICR refinement FCs;
-postprocess = per-iteration class-wise NMS (iteration 0 scored by MIDN,
-k > 0 by softmax(1+C)[..., 1:]), with padded proposals masked out. The
-loss and its OICR targets wait for the training step.
+loss = MIDN sigmoid CE against the image-level labels + per-iteration OICR
+CE (+ L2 on the heads); postprocess = per-iteration class-wise NMS
+(iteration 0 scored by MIDN, k > 0 by softmax(1+C)[..., 1:]), with padded
+proposals masked out.
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import torch
 
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.config import schema
-from cap2det_tpu_torch.fields import Cap2DetPredictions, DetectionFields
+from cap2det_tpu_torch.fields import (Cap2DetPredictions, DetectionFields,
+                                      InputFields)
 from cap2det_tpu_torch.models import frcnn, wsod
 from cap2det_tpu_torch.models.registry import register_model_class
+from cap2det_tpu_torch.ops import losses as loss_ops
 from cap2det_tpu_torch.ops import masked, nms
 from cap2det_tpu_torch.text import extractors as extractors_lib
 
@@ -23,18 +26,17 @@ FEATURE_DIM = 1024
 
 
 class Cap2DetModel:
-    """Cap2Det inference on one device ("cuda" unless the caller asks for
-    the CPU). Activations and conv weights run in ``compute_dtype``; the
-    heads run in float32. ``predictions`` reads the tree that ``prepare``
-    makes once from the params."""
+    """Cap2Det on one device ("cuda" unless the caller asks for the CPU).
+    Activations and conv weights run in ``compute_dtype``; the heads and
+    losses run in float32. ``predictions`` reads the tree that ``prepare``
+    makes from the params: once for serving, inside ``loss`` for
+    training."""
+
+    non_trainable_paths = ("word_embedding",)
+    non_trainable_substrings = ("/BatchNorm/moving_",)
 
     def __init__(self, options: schema.Cap2DetModel, is_training=False,
                  compute_dtype=torch.bfloat16, device="cuda"):
-        if is_training:
-            raise NotImplementedError(
-                "the training step is not ported yet; build with "
-                "is_training=False"
-            )
         self._options = options
         self._compute_dtype = compute_dtype
         self._device = params_lib.resolve_device(device)
@@ -47,6 +49,9 @@ class Cap2DetModel:
         self._fc_stddev = 0.01
         if hp and hp.initializer and hp.initializer.truncated_normal_initializer:
             self._fc_stddev = hp.initializer.truncated_normal_initializer.stddev
+        self._fc_l2 = 0.0
+        if hp and hp.regularizer and hp.regularizer.l2_regularizer:
+            self._fc_l2 = hp.regularizer.l2_regularizer.weight
 
     @property
     def options(self):
@@ -90,18 +95,38 @@ class Cap2DetModel:
         return frcnn.load_pretrained(params, converted_checkpoint)
 
     def prepare(self, params):
-        """The tree ``predictions`` reads, made once per set of params: the
-        backbone's frozen BN folded into its convs in ``compute_dtype``
-        (``frcnn.prepare``); the heads as they are."""
+        """The tree ``predictions`` reads: the backbone's frozen BN folded
+        into its convs in ``compute_dtype`` (``frcnn.prepare``); the heads
+        as they are. Serving makes it once per set of params; ``loss``
+        makes it on every step, differentiably."""
         return {**params, **frcnn.prepare(params, self._compute_dtype)}
+
+    # -- batches ----------------------------------------------------------------
+
+    def device_batch(self, host_batch):
+        """A host training batch (``InputFields`` keys) -> the batch
+        ``loss`` reads, as tensors on the model's device. The canvas stays
+        raw [B, H, W, 3] (uint8 from the pipeline); the forward casts it."""
+        dev = self._device
+        return {
+            "image": torch.as_tensor(host_batch[InputFields.image],
+                                     device=dev),
+            "proposals": torch.as_tensor(host_batch[InputFields.proposals],
+                                         dtype=torch.float32, device=dev),
+            "num_proposals": torch.as_tensor(
+                host_batch[InputFields.num_proposals], device=dev),
+            "labels": torch.as_tensor(host_batch[InputFields.pseudo_labels],
+                                      dtype=torch.float32, device=dev),
+        }
 
     # -- forward ----------------------------------------------------------------
 
-    def predictions(self, prepared, batch):
+    def predictions(self, prepared, batch, is_training=False, generator=None):
         """MIDN/OICR scores of a batch {"image" [B,H,W,3] pixels in
         [0,255], "proposals" [B,P,4], "num_proposals" [B]} (tensors or
         arrays; moved to the model's device), with the params
-        ``prepare`` made."""
+        ``prepare`` made. `is_training` applies the FRCNN dropout, drawn
+        from `generator`."""
         dev = self._device
         images = torch.as_tensor(batch["image"], device=dev)
         proposals = torch.as_tensor(batch["proposals"], dtype=torch.float32,
@@ -110,7 +135,8 @@ class Cap2DetModel:
         mask = masked.sequence_mask(num_proposals, proposals.shape[1])
 
         features = frcnn.extract_features(
-            prepared, images, proposals, self._options.frcnn_options
+            prepared, images, proposals, self._options.frcnn_options,
+            is_training=is_training, generator=generator,
         )
         class_logits, proposal_scores, proba_r_given_c = wsod.midn_head(
             prepared["midn"], features, mask
@@ -128,6 +154,46 @@ class Cap2DetModel:
                 Cap2DetPredictions.oicr_proposal_scores + "_at_%d" % (i + 1)
             ] = wsod.fc(prepared["oicr"]["iter%d" % (i + 1)], features)
         return preds
+
+    def loss(self, params, batch, generator=None, is_training=True):
+        """(total, loss_dict) of a batch from ``device_batch``: MIDN sigmoid
+        CE, each OICR iteration's CE and the heads' L2, with the JAX
+        package's keys and weights. The BN fold runs inside (``prepare``),
+        so gradients reach the live params."""
+        options = self._options
+        preds = self.predictions(self.prepare(params), batch,
+                                 is_training=is_training, generator=generator)
+        labels = torch.as_tensor(batch["labels"], dtype=torch.float32,
+                                 device=self._device)
+        loss_dict = {}
+        midn_ce = loss_ops.sigmoid_cross_entropy(
+            labels, preds[Cap2DetPredictions.midn_class_logits]).mean()
+        loss_dict["midn_cross_entropy_loss"] = (midn_ce
+                                                * options.midn_loss_weight)
+
+        proposals = preds[DetectionFields.proposal_boxes]
+        mask = preds["proposal_mask"]
+        scores_0 = preds[Cap2DetPredictions.oicr_proposal_scores + "_at_0"]
+        if options.oicr_use_proba_r_given_c:
+            scores_0 = preds[Cap2DetPredictions.midn_proba_r_given_c]
+        scores_0 = torch.cat([torch.zeros_like(scores_0[..., :1]), scores_0],
+                             dim=-1)
+        for i in range(options.oicr_iterations):
+            scores_1 = preds[
+                Cap2DetPredictions.oicr_proposal_scores + "_at_%d" % (i + 1)]
+            ce = wsod.oicr_loss(labels, proposals, scores_0, scores_1, mask,
+                                iou_threshold=options.oicr_iou_threshold)
+            loss_dict["oicr_cross_entropy_loss_at_%d" % (i + 1)] = (
+                ce * options.oicr_loss_weight)
+            scores_0 = torch.softmax(scores_1, dim=-1)
+
+        total = sum(loss_dict.values())
+        if self._fc_l2 > 0:
+            reg = loss_ops.l2_regularization(
+                {"midn": params["midn"], "oicr": params["oicr"]}, self._fc_l2)
+            loss_dict["regularization_loss"] = reg
+            total = total + reg
+        return total, loss_dict
 
     # -- postprocess / eval ------------------------------------------------------
 

@@ -1,10 +1,10 @@
 """Fast-RCNN proposal feature extraction (port of
-``cap2det_tpu/models/frcnn.py``, inference).
+``cap2det_tpu/models/frcnn.py``).
 
-preprocess -> first-stage InceptionV2 (full image, stride 16) -> fused
-ROI crop_and_resize + max-pool (``kernels/roi_pool``) -> second-stage
-InceptionV2 over B*P ROIs -> float32 spatial mean -> [B, P, 1024].
-Dropout is a training concern and waits for the training step.
+preprocess -> first-stage InceptionV2 (full image, stride 16) ->
+[training: optional feature-map dropout] -> fused ROI crop_and_resize +
+max-pool (``kernels/roi_pool``) -> second-stage InceptionV2 over B*P ROIs
+-> float32 spatial mean -> [training: dropout] -> [B, P, 1024].
 """
 
 from __future__ import annotations
@@ -47,7 +47,17 @@ def prepare(params, compute_dtype=torch.bfloat16):
             for scope in (FIRST_SCOPE, SECOND_SCOPE)}
 
 
-def extract_features(prepared, images, proposals, options: schema.FRCNN):
+def dropout(x, keep_prob, generator):
+    """Inverted dropout: where(keep, x / keep_prob, 0), keep drawn with
+    probability keep_prob from `generator` (on x's device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def extract_features(prepared, images, proposals, options: schema.FRCNN,
+                     is_training=False, generator=None,
+                     second_stage_chunk=None):
     """Returns [B, P, 1024] float32 pooled proposal features.
 
     Args:
@@ -55,10 +65,19 @@ def extract_features(prepared, images, proposals, options: schema.FRCNN):
         made by ``prepare``}; the convs run in their weights' dtype.
       images: [B, H, W, 3] raw pixel values in [0, 255] (any real dtype).
       proposals: [B, P, 4] float32 canvas-normalized boxes.
+      is_training: apply dropout (on the feature map when
+        ``dropout_on_feature_map``; on the pooled features when
+        ``dropout_keep_prob < 1``), drawn from `generator`.
+      second_stage_chunk: optional number of ROIs per pass through the
+        second stage; None runs all B*P at once. When it would engage it
+        must divide B*P, as in the JAX package.
     """
     batch, num_proposals = proposals.shape[:2]
+    keep_prob = options.dropout_keep_prob
     preprocessed = inception_v2.preprocess(images.float())
     features = inception_v2.first_stage(prepared[FIRST_SCOPE], preprocessed)
+    if is_training and options.dropout_on_feature_map:
+        features = dropout(features, keep_prob, generator)
     rois = roi_pool.roi_crop_maxpool(
         features,
         proposals.float().contiguous(),
@@ -68,8 +87,23 @@ def extract_features(prepared, images, proposals, options: schema.FRCNN):
     )  # [B, P, S', S', C]
     s = rois.shape[2]
     rois = rois.reshape(batch * num_proposals, s, s, rois.shape[-1])
-    box_features = inception_v2.second_stage(prepared[SECOND_SCOPE], rois)
+    n = rois.shape[0]
+    if second_stage_chunk and n > second_stage_chunk:
+        if n % second_stage_chunk:
+            raise ValueError(
+                "second_stage_chunk=%d does not divide batch*num_proposals=%d"
+                % (second_stage_chunk, n)
+            )
+        box_features = torch.cat([
+            inception_v2.second_stage(prepared[SECOND_SCOPE],
+                                      rois[i:i + second_stage_chunk])
+            for i in range(0, n, second_stage_chunk)
+        ])
+    else:
+        box_features = inception_v2.second_stage(prepared[SECOND_SCOPE], rois)
     pooled = box_features.float().mean(dim=(1, 2))  # [B*P, 1024]
+    if is_training and keep_prob < 1.0:
+        pooled = dropout(pooled, keep_prob, generator)
     return pooled.reshape(batch, num_proposals, -1)
 
 

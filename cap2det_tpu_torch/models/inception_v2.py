@@ -1,5 +1,5 @@
 """InceptionV2 (BN-Inception) backbone with the Faster-RCNN two-stage split
-(port of ``cap2det_tpu/models/inception_v2.py``, inference).
+(port of ``cap2det_tpu/models/inception_v2.py``).
 
 The first stage runs the stem and Mixed_3b..Mixed_4e (stride 16, 576
 channels) over the full image; the second stage runs Mixed_5a..Mixed_5c
@@ -16,11 +16,15 @@ copy) for cuDNN. What the port reproduces, and how:
   differ.
 - Frozen BN folded into the conv (eps 1e-3), then bias and ReLU. The
   fold, the cast to the compute dtype and the separable 7x7 stem's
-  composition into one dense conv (cin = 3) happen once, in ``prepare``.
+  composition into one dense conv (cin = 3) happen in ``prepare``: once
+  per set of params for serving, and inside the loss on every training
+  step, where it is differentiable, so gradients reach ``weights`` and
+  ``beta`` (and land in their float32) while the moving statistics stay
+  frozen; frozen leaves (``requires_grad=False``) build no graph.
 - Avg-pool divides by the count of in-bounds taps.
-- Second-stage pools go through the SAME pool kernel
-  (``kernels/pool_grad.pool_fwd``) at every N; the first stage's large-map
-  pools stay plain torch.
+- Second-stage pools go through the SAME pool kernels at every N
+  (``kernels/pool_grad.pool_same``: K4 forward, K5/K6 backward); the first
+  stage's large-map pools stay plain torch.
 
 The TPU layout choices of the JAX package (merged 1x1 branches, lane
 padding to 128, the space-to-depth stem) are not carried over.
@@ -226,10 +230,11 @@ def _compose_separable(params):
 
 def prepare(params, compute_dtype=torch.bfloat16):
     """A stage's params tree -> the tree ``first_stage``/``second_stage``
-    read, made once per set of params: every conv's frozen BN folded into
-    its weights and bias in compute_dtype (the separable stem composed into
-    one dense conv first), so a forward pass launches no weight
-    arithmetic."""
+    read: every conv's frozen BN folded into its weights and bias in
+    compute_dtype (the separable stem composed into one dense conv first).
+    Serving makes it once per set of params, so a forward pass launches no
+    weight arithmetic; training makes it inside the loss, where autograd
+    carries the gradients back through the fold and the cast."""
     out = {}
     for key, value in params.items():
         if "depthwise_weights" in value:
@@ -277,9 +282,10 @@ def pool_dense(x, kind, kernel, stride):
 
 def pool_roi(x, kind, kernel, stride):
     """SAME pool of the second stage's small ROI maps through the pool
-    kernel (NHWC memory, so the permutes are views)."""
-    nhwc = pool_grad.pool_fwd(x.permute(0, 2, 3, 1).contiguous(), kind,
-                              kernel, stride)
+    kernels: K4 forward, K5/K6 backward (NHWC memory, so the permutes are
+    views)."""
+    nhwc = pool_grad.pool_same(x.permute(0, 2, 3, 1).contiguous(), kind,
+                               kernel, stride)
     return nhwc.permute(0, 3, 1, 2)
 
 
