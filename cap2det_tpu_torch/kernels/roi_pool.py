@@ -33,6 +33,8 @@ grad_launches = 0
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_FROM_FIXED_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                ctypes.c_int, ctypes.c_void_p]
 
 
 def _threads(channels):
@@ -105,23 +107,32 @@ def _launch_grad(features, boxes, grad, crop_size, pool_kernel, pool_stride):
         raise ValueError("%s: grad must be contiguous" % name)
     batch, height, width, channels = features.shape
     num_p = boxes.shape[1]
-    # The kernel adds into a float32 map with atomics.
-    dfeat = torch.zeros(features.shape, dtype=torch.float32,
-                        device=features.device)
-    if num_p == 0 or dfeat.numel() == 0:
-        return dfeat.to(features.dtype)
+    if num_p == 0 or features.numel() == 0:
+        return torch.zeros_like(features)
+    # The kernel adds 64-bit fixed-point values (2^-32 units) into an int64
+    # map with integer atomics, so dF has the same bits in every run; a
+    # second kernel converts it to the features' dtype.
+    acc = torch.zeros(features.shape, dtype=torch.int64,
+                      device=features.device)
+    dfeat = torch.empty_like(features)
+    is_bf16 = int(features.dtype == torch.bfloat16)
     fn = build.function("cap2det_roi_crop_maxpool_bwd", _BWD_ARGTYPES)
+    to_float = build.function("cap2det_roi_grad_from_fixed",
+                              _FROM_FIXED_ARGTYPES)
     with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             features.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
-            dfeat.data_ptr(), batch, height, width, channels, num_p,
-            crop_size, pool_kernel, pool_stride,
-            int(features.dtype == torch.bfloat16), _threads(channels),
-            torch.cuda.current_stream().cuda_stream,
+            acc.data_ptr(), batch, height, width, channels, num_p,
+            crop_size, pool_kernel, pool_stride, is_bf16,
+            _threads(channels), stream,
         )
+        build.check(rc, name)
+        rc = to_float(acc.data_ptr(), dfeat.data_ptr(), acc.numel(), is_bf16,
+                      stream)
     build.check(rc, name)
     grad_launches += 1
-    return dfeat.to(features.dtype)
+    return dfeat
 
 
 def _check_args(name, features, boxes):
@@ -141,8 +152,9 @@ def roi_crop_maxpool_grad(features, boxes, grad, crop_size, pool_kernel=2,
                           pool_stride=2):
     """dF of ``roi_crop_maxpool`` (K2): each pooled gradient goes to the
     first maximal crop sample of its window, in row-major order, and
-    through that sample's bilinear weights into dF, accumulated in float32
-    and returned in the features' dtype.
+    through that sample's bilinear weights into dF, returned in the
+    features' dtype. The kernel sums in 64-bit fixed point (bitwise the
+    same in every run), the plain version in float32.
 
     Args:
       features: [B, H, W, C] float32 or bfloat16.

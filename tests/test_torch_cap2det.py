@@ -201,38 +201,59 @@ def test_multiscale_predict_matches_jax_identity_resize(models, hw):
     _same_predictions(got, want)
 
 
-def _cv2_resize(image, canvas_hw):
-    resized, hw = jax_pipeline.resize_to_canvas(
-        np.asarray(torch.as_tensor(image).cpu()), canvas_hw)
-    return torch.from_numpy(resized), hw
-
-
-def test_multiscale_predict_matches_jax_over_scales(label_file, monkeypatch):
-    """Two scales, each a real resize: the port resizes with the JAX
-    package's cv2 resize here, so the test holds the per-scale canvases,
-    the proposal rescaling and the mean over scales."""
+def test_multiscale_predict_matches_jax_over_scales(label_file):
+    """Two scales, each a real resize: the port's own integer resize
+    against the JAX package's cv2 resize end to end, so the test holds the
+    per-scale canvases, the proposal rescaling and the mean over scales."""
     pytest.importorskip("cv2")
-    monkeypatch.setattr(pipeline, "resize_to_canvas", _cv2_resize)
     models = _build(label_file, scales=(64, 32))
     example = _example(np.random.default_rng(6), (70, 90), "scaled")
     got, want = _predict_both(models, example)
     _same_predictions(got, want)
 
 
-@pytest.mark.parametrize("hw,canvas", [((70, 90), (64, 96)),
-                                       ((40, 50), (96, 64)),
-                                       ((64, 96), (64, 96))])
-def test_resize_within_one_of_cv2(hw, canvas):
+@pytest.mark.parametrize("hw,canvas", [
+    ((70, 90), (64, 96)), ((40, 50), (96, 64)), ((64, 96), (64, 96)),
+    # chip_smoke.py's three serving images at scale 1200.
+    ((375, 500), (1216, 1824)), ((500, 333), (1824, 1216)),
+    ((400, 400), (1216, 1824)),
+    ((800, 1200), (400, 600)),  # exact 2x downscale
+    ((37, 53), (416, 608)),  # x11 upscale to 416x596
+], ids=["down", "up_portrait", "identity", "serve_landscape",
+        "serve_portrait", "serve_square", "down_2x", "up_x11"])
+def test_resize_matches_cv2_bit_for_bit(hw, canvas):
     pytest.importorskip("cv2")
     image = np.random.default_rng(7).integers(0, 256, hw + (3,)).astype(
         np.uint8)
     want, want_hw = jax_pipeline.fit_image_to_canvas(image, canvas)
     got, got_hw = pipeline.fit_image_to_canvas(image, canvas)
     assert got_hw == want_hw and got.dtype == torch.uint8
-    diff = np.abs(got.numpy().astype(int) - want.astype(int))
-    assert diff.max() <= 1
-    if hw == canvas:
-        assert diff.max() == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_resize_keeps_the_vertical_border_weights(monkeypatch):
+    """cv2 clamps a border row's two indices but not their weights, unlike
+    the horizontal axis, where the weight moves to the edge pixel."""
+    pytest.importorskip("cv2")
+    import cv2
+
+    y0, y1, b0, b1 = pipeline._linear_coeffs(6, 23, False, "cpu")
+    assert y0[0] == y1[0] == 0 and b0[0] > 0 and b1[0] > 0
+    x0, x1, a0, a1 = pipeline._linear_coeffs(8, 31, True, "cpu")
+    assert x0[0] == 0 and a0[0] == 2048 and a1[0] == 0
+    assert x0[-1] == x1[-1] == 7 and a0[-1] == 2048 and a1[-1] == 0
+    image = np.random.default_rng(8).integers(0, 256, (6, 8, 3)).astype(
+        np.uint8)
+    want = cv2.resize(image, (31, 23), interpolation=cv2.INTER_LINEAR)
+    got = pipeline.resize_bilinear_u8(torch.from_numpy(image), 23, 31)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Clamping the vertical weights too changes the border rows.
+    coeffs = pipeline._linear_coeffs
+    monkeypatch.setattr(pipeline, "_linear_coeffs",
+                        lambda src, dst, _, device: coeffs(src, dst, True,
+                                                           device))
+    clamped = pipeline.resize_bilinear_u8(torch.from_numpy(image), 23, 31)
+    assert (clamped.numpy() != want).any()
 
 
 def test_canvas_matches_jax():

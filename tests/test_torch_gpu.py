@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cap2det_tpu_torch.config import schema
+from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.kernels import pool_grad, roi_pool
 from cap2det_tpu_torch.models import registry
 from cap2det_tpu_torch.ops import roi as roi_ops
@@ -27,9 +28,20 @@ torch.set_num_threads(1)
 # bfloat16: both round float32 values to bfloat16, one bf16 step apart.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-5)}
 # The ROI backward adds many contributions of size ~1 into each dF value,
-# with atomics on the card and index_add_ in the plain version: the same
-# terms in another order.
+# in 64-bit fixed point on the card and in float32 with index_add_ in the
+# plain version.
 GRAD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1.6e-2, 1e-4)}
+
+
+# Beyond the model's shapes: channel counts whose rows are not a multiple
+# of 16 bytes (the one-channel path, with a partial last tile), a single
+# block (N = 1, one channel tile), and a map too large to stage in shared
+# memory (the untiled kernels). The model's shapes, and "odd" in float32
+# (a partial tile of 16-byte lanes), cover the vector path.
+EXTRA_POOL_SHAPES = [((3, 7, 7, 130), 3, 2), ((2, 4, 4, 1030), 3, 1),
+                     ((1, 7, 7, 32), 3, 2), ((1, 4, 4, 1030), 3, 1),
+                     ((2, 40, 40, 64), 3, 2)]
+EXTRA_POOL_IDS = ["c130", "c1030", "one_block", "n1_c1030", "large_map"]
 
 
 @pytest.fixture
@@ -83,8 +95,8 @@ def test_roi_kernel_matches_plain(cuda, dtype, shape, num_p, crop, k, s):
 @pytest.mark.parametrize(
     "shape,k,s",
     [((2000, 7, 7, 576), 3, 2), ((2000, 4, 4, 1024), 3, 1),
-     ((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2)],
-    ids=["mixed5a", "mixed5bc", "odd", "even_kernel"])
+     ((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2)] + EXTRA_POOL_SHAPES,
+    ids=["mixed5a", "mixed5bc", "odd", "even_kernel"] + EXTRA_POOL_IDS)
 def test_pool_kernel_matches_plain(cuda, dtype, kind, shape, k, s):
     rng = np.random.default_rng(1)
     x = torch.from_numpy(
@@ -156,11 +168,12 @@ def test_roi_grad_kernel_matches_plain(cuda, dtype, quantised, shape, num_p,
 @pytest.mark.parametrize(
     "shape,k,s",
     [((1000, 7, 7, 576), 3, 2), ((1000, 4, 4, 1024), 3, 1),
-     ((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2)],
-    ids=["mixed5a", "mixed5bc", "odd", "even_kernel"])
+     ((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2)] + EXTRA_POOL_SHAPES,
+    ids=["mixed5a", "mixed5bc", "odd", "even_kernel"] + EXTRA_POOL_IDS)
 def test_pool_grad_kernels_match_plain(cuda, dtype, kind, shape, k, s):
-    """Same winners, same f32 summation order: equal up to the tolerance
-    (in practice bit for bit). x is quantised for the max form (ties)."""
+    """Same winners, same f32 summation order: the max form is bit-equal
+    to its plain version in float32, the rest within the tolerance. x is
+    quantised (ties)."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 3, shape).astype(np.float32)).to(
         cuda, dtype)
@@ -182,6 +195,31 @@ def test_pool_grad_kernels_match_plain(cuda, dtype, kind, shape, k, s):
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+    if kind == "pool_max" and dtype == torch.float32:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape,num_p,crop,k,s",
+    [((2, 64, 96, 576), 100, 14, 2, 2), ((1, 10, 7, 130), 9, 6, 3, 1)],
+    ids=["coco_width", "k3s1"])
+def test_roi_grad_kernel_is_deterministic(cuda, dtype, shape, num_p, crop, k,
+                                          s):
+    """Two launches on the same tie-rich inputs give the same bits."""
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.integers(0, 3, shape).astype(
+        np.float32)).to(cuda, dtype)
+    boxes = torch.from_numpy(_boxes(rng, shape[0], num_p)).to(cuda)
+    pooled = (crop - k) // s + 1
+    grad = torch.from_numpy(rng.standard_normal(
+        (shape[0], num_p, pooled, pooled, shape[-1]), dtype=np.float32)).to(
+            cuda, dtype)
+    first = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, crop, k, s)
+    again = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, crop, k, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("kind", ["pool_max", "pool_avg"])
@@ -215,6 +253,22 @@ def test_roi_function_backward_on_the_card(cuda):
             out, f, torch.from_numpy(grad).to(device)[..., :40])
         grads.append(df.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,canvas", [((375, 500), (1216, 1824)),
+                                       ((37, 53), (416, 608)),
+                                       ((800, 1200), (400, 600))],
+                         ids=["serve_landscape", "up_x11", "down_2x"])
+def test_resize_on_the_card_equals_the_cpu(cuda, hw, canvas):
+    """The integer resize gives the same canvas on the card as on the CPU,
+    where the CPU tests hold it to cv2 bit for bit."""
+    image = np.random.default_rng(8).integers(0, 256, hw + (3,)).astype(
+        np.uint8)
+    got, got_hw = pipeline.fit_image_to_canvas(
+        torch.from_numpy(image).to(cuda), canvas)
+    want, want_hw = pipeline.fit_image_to_canvas(image, canvas)
+    assert got.is_cuda and got_hw == want_hw
+    assert torch.equal(got.cpu(), want)
 
 
 _TRAIN_PIPELINE = """

@@ -120,7 +120,9 @@ def _c_params(source, name):
     ("roi_pool.cu", "cap2det_roi_crop_maxpool_fwd", roi_pool._FWD_ARGTYPES),
     ("roi_pool_bwd.cu", "cap2det_roi_crop_maxpool_bwd",
      roi_pool._BWD_ARGTYPES),
-], ids=["K4", "K5_K6", "K1", "K2"])
+    ("roi_pool_bwd.cu", "cap2det_roi_grad_from_fixed",
+     roi_pool._FROM_FIXED_ARGTYPES),
+], ids=["K4", "K5_K6", "K1", "K2", "K2_from_fixed"])
 def test_argtypes_match_the_c_signatures(source, name, argtypes):
     """ctypes checks only that enough arguments are passed: a declared
     type too many shows up only on the card."""
