@@ -92,7 +92,7 @@ def crop_resize_maxpool(features, boxes, crop_size, pool_kernel, pool_stride):
 
 
 # ---------------------------------------------------------------------------
-# Backward: the plain version of the ROI backward kernel
+# The kernels' own arithmetic: exact oracles, and the plain backward
 # ---------------------------------------------------------------------------
 
 
@@ -115,9 +115,9 @@ def sample_coords(starts, ends, crop_size, extent):
     return idx.long(), (1.0 - frac) * inside, frac * inside
 
 
-def _grad_chunk(features, boxes, grad, dfeat, crop_size, pool_kernel,
-                pool_stride):
-    """Adds one chunk of proposals' dF into dfeat [B*H*W, C] float32."""
+def _sample_grid(features, boxes, crop_size):
+    """The batch index, the two rows and two columns of every sample and
+    their weights, broadcastable over [B, P, S, S, C]."""
     batch, height, width, _ = features.shape
     y1, x1, y2, x2 = boxes.float().unbind(-1)
     yi, ya, yb = sample_coords(y1, y2, crop_size, height)  # [B, P, S]
@@ -125,19 +125,53 @@ def _grad_chunk(features, boxes, grad, dfeat, crop_size, pool_kernel,
     bi = torch.arange(batch, device=features.device)[:, None, None, None]
     rows = (yi[..., :, None], yi[..., :, None] + 1)
     cols = (xi[..., None, :], xi[..., None, :] + 1)
+    wy = (ya[..., :, None, None], yb[..., :, None, None])
+    wx = (xa[..., None, :, None], xb[..., None, :, None])
+    return bi, rows, cols, wy, wx
 
-    def corner(r, c):  # [B, P, S, S, C] float32
+
+def crop_samples(features, boxes, crop_size):
+    """[B, P, S, S, C] float32 crop samples computed exactly as the CUDA
+    kernels compute them: ``sample_coords``, the y-lerp of the two rows at
+    columns x0 and x0+1, then the x-lerp, each operation rounded on its
+    own (PyTorch runs each as a kernel of its own, so nothing is
+    contracted into an FMA)."""
+    bi, rows, cols, wy, wx = _sample_grid(features, boxes, crop_size)
+
+    def corner(r, c):
         return features[bi, rows[r], cols[c]].float()
 
-    ya4, yb4 = ya[..., :, None, None], yb[..., :, None, None]
-    xa4, xb4 = xa[..., None, :, None], xb[..., None, :, None]
-    # The kernel's sample: y-lerp at columns x0 and x0+1, then x-lerp.
-    t0 = corner(0, 0) * ya4 + corner(1, 0) * yb4
-    t1 = corner(0, 1) * ya4 + corner(1, 1) * yb4
-    samples = t0 * xa4 + t1 * xb4
-    del t0, t1
+    t0 = corner(0, 0) * wy[0] + corner(1, 0) * wy[1]
+    t1 = corner(0, 1) * wy[0] + corner(1, 1) * wy[1]
+    return t0 * wx[0] + t1 * wx[1]
 
-    # First-tie routing over each window, taps in row-major order.
+
+def crop_resize_maxpool_exact(features, boxes, crop_size, pool_kernel,
+                              pool_stride):
+    """``crop_resize_maxpool`` with the kernels' sample arithmetic
+    (``crop_samples``), chunked over proposals: the CUDA forward (K1)
+    equals it bit for bit, in float32 and bfloat16. Returns
+    [B, P, S', S', C] in the features' dtype."""
+    # About six float32 [S, S, C] intermediates live per proposal.
+    channels = features.shape[-1]
+    chunk = max(1, _CHUNK_BYTES // (6 * crop_size * crop_size * channels * 4))
+    outs = [
+        max_pool_2d(crop_samples(features, boxes[:, p:p + chunk], crop_size),
+                    pool_kernel, pool_stride)
+        for p in range(0, boxes.shape[1], chunk)
+    ]
+    return torch.cat(outs, dim=1).to(features.dtype)
+
+
+# 64-bit fixed point of the CUDA backward: units of 2^-32.
+FIXED_SCALE = 2.0 ** 32
+
+
+def _winners(features, boxes, grad, crop_size, pool_kernel, pool_stride):
+    """The pool's taps, as indices into [B, P, S, S, C], and per tap the
+    float32 gradient of the cells whose winner it is (0 elsewhere): the
+    first maximal crop sample of each window, taps in row-major order."""
+    samples = crop_samples(features, boxes, crop_size)
     pooled = grad.shape[2]
     span = (pooled - 1) * pool_stride + 1
     taps = [(..., slice(i, i + span, pool_stride),
@@ -149,41 +183,142 @@ def _grad_chunk(features, boxes, grad, dfeat, crop_size, pool_kernel,
         best = torch.maximum(best, v)
     gf = grad.float()
     taken = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
-    dsamples = torch.zeros_like(samples)
-    for t, v in zip(taps, views):
+    g_taps = []
+    for v in views:
         hit = (v >= best) & ~taken
         taken |= hit
-        dsamples[t] += gf * hit
-    del samples, views
+        g_taps.append(gf * hit)
+    return taps, g_taps
 
-    # Scatter through the bilinear weights into dF.
+
+def _fixed_contributions(features, boxes, grad, crop_size, pool_kernel,
+                         pool_stride):
+    """Yields (r, ti, c, tj, v) per tap (rows ti, columns tj of the crop)
+    and winner corner (r, c in {0, 1}): v = (g * wy) * wx [B, P, S', S', C],
+    the CUDA backward's contributions, each quantised on its own (where
+    windows overlap, a sample's contributions are not pre-summed)."""
+    _, _, _, wy, wx = _sample_grid(features, boxes, crop_size)
+    taps, g_taps = _winners(features, boxes, grad, crop_size, pool_kernel,
+                            pool_stride)
+    for (_, ti, tj, _), g_tap in zip(taps, g_taps):
+        for r in (0, 1):
+            dy = g_tap * wy[r][..., ti, :, :]
+            for c in (0, 1):
+                yield r, ti, c, tj, dy * wx[c][..., tj, :]
+
+
+def _grad_chunk(features, boxes, grad, dfeat, crop_size, pool_kernel,
+                pool_stride):
+    """Adds one chunk of proposals' dF into dfeat [B*H*W, C]: float32 sums,
+    or, when dfeat is int64, the kernel's fixed-point contributions."""
+    _, height, width, _ = features.shape
+    bi, rows, cols, wy, wx = _sample_grid(features, boxes, crop_size)
     channels = dfeat.shape[-1]
-    for r, wy in ((0, ya4), (1, yb4)):
-        dy = dsamples * wy
-        for c, wx in ((0, xa4), (1, xb4)):
+    if dfeat.dtype == torch.int64:
+        for r, ti, c, tj, v in _fixed_contributions(
+                features, boxes, grad, crop_size, pool_kernel, pool_stride):
+            q = torch.round(v * FIXED_SCALE).long()
+            flat = ((bi * height + rows[r][..., ti, :]) * width
+                    + cols[c][..., tj])
+            dfeat.index_add_(0, flat.expand(v.shape[:-1]).reshape(-1),
+                             q.reshape(-1, channels))
+        return
+
+    taps, g_taps = _winners(features, boxes, grad, crop_size, pool_kernel,
+                            pool_stride)
+    dsamples = torch.zeros(tuple(grad.shape[:2]) + (crop_size, crop_size,
+                                                    channels),
+                           dtype=torch.float32, device=features.device)
+    for t, g_tap in zip(taps, g_taps):
+        dsamples[t] += g_tap
+    # Scatter through the bilinear weights into dF.
+    for r in (0, 1):
+        dy = dsamples * wy[r]
+        for c in (0, 1):
             flat = (bi * height + rows[r]) * width + cols[c]
-            dfeat.index_add_(0, flat.reshape(-1),
-                             (dy * wx).reshape(-1, channels))
+            dfeat.index_add_(0, flat.expand(dy.shape[:-1]).reshape(-1),
+                             (dy * wx[c]).reshape(-1, channels))
 
 
 def crop_resize_maxpool_grad(features, boxes, grad, crop_size, pool_kernel,
-                             pool_stride):
+                             pool_stride, fixed_point=False):
     """dF of ``crop_resize_maxpool`` given the pooled gradient
-    [B, P, S', S', C], in the features' dtype (accumulated in float32).
+    [B, P, S', S', C], in the features' dtype.
 
     The samples are recomputed per sample, through gathers, with the CUDA
-    kernels' expressions (``sample_coords``, the y-lerp then the x-lerp),
-    not with the forward's dense interpolation matrices, whose weights can
-    differ by an ulp: so this version and the kernel pick each window's
-    winner from bitwise-equal values. Chunked over proposals like the
-    forward; boxes get no gradient."""
+    kernels' expressions (``crop_samples``), not with the forward's dense
+    interpolation matrices, whose weights can differ by an ulp: so this
+    version and the kernel pick each window's winner from bitwise-equal
+    values. By default the contributions are summed in float32 with
+    ``index_add_`` (the CPU path). With ``fixed_point`` each contribution
+    v = (g * wy) * wx becomes round_half_even(v * 2^32) in int64, summed
+    exactly, then converted once (times 2^-32 to float32, then to the
+    features' dtype): the CUDA backward (K2) equals that bit for bit, and it
+    does not depend on the order of the proposals. Chunked over proposals
+    like the forward; boxes get no gradient."""
     batch, height, width, channels = features.shape
     dfeat = torch.zeros((batch * height * width, channels),
-                        dtype=torch.float32, device=features.device)
-    # About ten float32 [S, S, C] intermediates live per proposal.
+                        dtype=torch.int64 if fixed_point else torch.float32,
+                        device=features.device)
+    for p in _grad_chunks(boxes.shape[1], crop_size, channels):
+        _grad_chunk(features, boxes[:, p], grad[:, p], dfeat, crop_size,
+                    pool_kernel, pool_stride)
+    if fixed_point:
+        dfeat = dfeat.to(torch.float32) * (1.0 / FIXED_SCALE)
+    return dfeat.reshape(features.shape).to(features.dtype)
+
+
+def _grad_chunks(num_p, crop_size, channels):
+    """Slices of the proposals, each small enough that the backward's
+    about ten float32 [S, S, C] intermediates per proposal fit a chunk."""
     per_proposal = 10 * crop_size * crop_size * channels * 4
     chunk = max(1, _CHUNK_BYTES // per_proposal)
-    for p in range(0, boxes.shape[1], chunk):
-        _grad_chunk(features, boxes[:, p:p + chunk], grad[:, p:p + chunk],
-                    dfeat, crop_size, pool_kernel, pool_stride)
-    return dfeat.reshape(features.shape).to(features.dtype)
+    return [slice(p, p + chunk) for p in range(0, num_p, chunk)]
+
+
+def _footprint_slots(idx):
+    """For per-sample floor indices [..., S]: the slot of each idx in the
+    ascending set of {idx, idx + 1} over the samples (a proposal's row or
+    column set, as the CUDA kernels build it), and the set's size."""
+    ordered = torch.cat([idx, idx + 1], -1).sort(-1).values
+    first = torch.ones_like(ordered, dtype=torch.bool)
+    first[..., 1:] = ordered[..., 1:] != ordered[..., :-1]
+    slot = ((ordered[..., None, :] < idx[..., :, None])
+            & first[..., None, :]).sum(-1)
+    return slot, first.sum(-1)
+
+
+def crop_resize_maxpool_grad_atomics(features, boxes, grad, crop_size,
+                                     pool_kernel, pool_stride, local_slots):
+    """Global int64 atomics of the CUDA backward (K2) on these inputs,
+    counted from its fixed-point contributions (no kernel runs):
+    {"contributions": the nonzero contributions, one atomic each when added
+    straight to dF, "atomics": the atomics when every proposal whose
+    footprint |R| x |C| holds at most `local_slots` positions first sums
+    its contributions per (position, channel) and then issues one atomic per
+    nonzero sum}."""
+    _, height, width, channels = features.shape
+    y1, x1, y2, x2 = boxes.float().unbind(-1)
+    contributions = atomics = 0
+    for p in _grad_chunks(boxes.shape[1], crop_size, channels):
+        slot_y, n_y = _footprint_slots(
+            sample_coords(y1[:, p], y2[:, p], crop_size, height)[0])
+        slot_x, n_x = _footprint_slots(
+            sample_coords(x1[:, p], x2[:, p], crop_size, width)[0])
+        local = (n_y * n_x <= local_slots)[..., None, None, None]
+        acc = torch.zeros(tuple(n_y.shape) + (max(local_slots, 1), channels),
+                          dtype=torch.int64, device=features.device)
+        for r, ti, c, tj, v in _fixed_contributions(
+                features, boxes[:, p], grad[:, p], crop_size, pool_kernel,
+                pool_stride):
+            nonzero = v != 0
+            contributions += int(nonzero.sum())
+            atomics += int((nonzero & ~local).sum())
+            q = torch.round(v * FIXED_SCALE).long() * local
+            slot = ((slot_y[..., ti, None] + r) * n_x[..., None, None]
+                    + slot_x[..., None, tj] + c)
+            slot = torch.clamp(slot, max=acc.shape[2] - 1)
+            acc.scatter_add_(2, slot.flatten(2)[..., None].expand(
+                -1, -1, -1, channels), q.flatten(2, 3))
+        atomics += int((acc != 0).sum())
+    return {"contributions": contributions, "atomics": atomics}

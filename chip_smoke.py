@@ -7,8 +7,13 @@ Run from the repository root, with no arguments:
 
 Phases (any failure ends the run with a nonzero exit code):
   1. build the hand-written CUDA kernels from cap2det_tpu_torch/csrc;
-  2. hold the ROI crop+pool kernel (K1) against its plain PyTorch version
-     at the serving shapes, in bfloat16 and float32;
+  2. hold the ROI crop+pool kernel (K1) against its exact oracle (bit for
+     bit) and its plain PyTorch version (within TOL) at the largest serving
+     shape, in bfloat16 and float32 (a reversed box included), and in
+     bfloat16 at every shape the main path launches it at (the four
+     serving scales and the coco17 training map) with the mixed, all-wide
+     and all-narrow box sets, each timed beside its bound and gathered
+     footprint bytes;
   3. hold the SAME pool kernel (K4) against its plain version at the
      three second-stage shapes, in bfloat16 and float32;
   4. serve 3 seeded images (landscape, portrait, square; 2000 proposals
@@ -19,10 +24,12 @@ Phases (any failure ends the run with a nonzero exit code):
      bit, time 12 images (median and spread) and one image by layer, and
      hold one scale's
      float32 scores on the card against the same scale run on the CPU;
-  5. hold the ROI backward kernel (K2) against its plain version at the
-     coco17 training shape (features [2, 64, 96, 576], P=500), in
-     bfloat16 and float32, also on tie-rich quantised features, and
-     require two launches on the same inputs to give the same bits;
+  5. hold the ROI backward kernel (K2) against its fixed-point oracle (bit
+     for bit) and its float32 plain version (within GRAD_TOL) at the coco17
+     training shape (features [2, 64, 96, 576], P=500), in bfloat16 and
+     float32, also on tie-rich quantised features, require two launches on
+     the same inputs to give the same bits, and count its global atomics
+     with the fixed-point oracle (roi_pool.grad_atomic_counts);
   6. hold the max-pool (K5) and avg-pool (K6) backward kernels against
      their plain versions at the three second-stage training shapes
      (N=1000), in bfloat16 and float32, K5 also on tie-rich input and
@@ -65,6 +72,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ROI_OPS_PER_OUTPUT = 4 * 3 * 3 + 3
 FEATURE_SHAPE = (1, 76, 114, 576)  # Mixed_4e map of the 1216x1824 canvas
 NUM_PROPOSALS = 2000
+# Every shape the main path launches K1 at: the Mixed_4e maps of the four
+# serving canvases (1216x1824, 800x1216, 608x928, 416x608) at P=2000, and
+# the coco17 training map at P=500 per image.
+K1_SHAPES = [("serve 1216x1824", (1, 76, 114, 576), 2000),
+             ("serve 800x1216", (1, 50, 76, 576), 2000),
+             ("serve 608x928", (1, 38, 58, 576), 2000),
+             ("serve 416x608", (1, 26, 38, 576), 2000),
+             ("train coco17", (2, 64, 96, 576), 500)]
+BOX_SETS = {"mix": None, "wide": 0, "narrow": 1}  # make_boxes' kinds
 POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
     ("Mixed_5a max 3/s2", "pool_max", 3, 2, (2000, 7, 7, 576)),
     ("Mixed_5b avg 3/s1", "pool_avg", 3, 1, (2000, 4, 4, 1024)),
@@ -142,6 +158,8 @@ def reset_launch_counts():
     from cap2det_tpu_torch.kernels import pool_grad, roi_pool
 
     roi_pool.launches = roi_pool.grad_launches = 0
+    roi_pool.staged_launches = roi_pool.generic_launches = 0
+    roi_pool.grad_staged_launches = roi_pool.grad_generic_launches = 0
     pool_grad.launches = pool_grad.maxpool_grad_launches = 0
     pool_grad.avgpool_grad_launches = 0
 
@@ -182,11 +200,13 @@ def span_ms(spans):
             for label, pairs in spans.items()}
 
 
-def make_boxes(rng, num_p, num_pad):
-    """Seeded proposals: wide, narrow, partly outside the map, and zero
-    padding boxes at the end."""
+def make_boxes(rng, num_p, num_pad, only=None):
+    """Seeded proposals: wide, narrow, partly outside the map (or only the
+    kind `only`: 0 wide, 1 narrow), and zero padding boxes at the end."""
     n = num_p - num_pad
     kind = rng.integers(0, 3, n)
+    if only is not None:
+        kind[:] = only
     cy, cx = rng.uniform(0, 1, n), rng.uniform(0, 1, n)
     size = np.where(kind == 0, rng.uniform(0.5, 1.0, n),
                     np.where(kind == 1, rng.uniform(0.02, 0.1, n),
@@ -212,6 +232,22 @@ def phase_build():
             log("  ptxas: " + line.strip())
 
 
+def footprint_positions(torch, boxes, height, width, crop):
+    """Sum over proposals of |R| x |C|: the distinct rows and columns its
+    crop samples read (each sample's idx and idx+1), the positions the
+    staged kernels copy into shared memory."""
+    from cap2det_tpu_torch.ops import roi as roi_ops
+
+    y1, x1, y2, x2 = boxes.float().cpu().unbind(-1)
+
+    def distinct(lo, hi, extent):
+        idx, _, _ = roi_ops.sample_coords(lo, hi, crop, extent)
+        v = torch.sort(torch.cat([idx, idx + 1], -1), -1).values
+        return 1 + (v.diff(dim=-1) != 0).sum(-1)
+
+    return int((distinct(y1, y2, height) * distinct(x1, x2, width)).sum())
+
+
 def phase_roi(torch):
     from cap2det_tpu_torch.kernels import roi_pool
     from cap2det_tpu_torch.ops import roi as roi_ops
@@ -223,29 +259,79 @@ def phase_roi(torch):
     for num_p in (NUM_PROPOSALS, NUM_PROPOSALS - 1):
         boxes = torch.from_numpy(
             make_boxes(rng, num_p, num_pad=num_p // 20))[None].cuda()
+        boxes[0, 1] = boxes[0, 1, [2, 3, 0, 1]]  # a reversed box
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             feats = feats32.to(dtype)
             got = roi_pool.roi_crop_maxpool(feats, boxes, 14, 2, 2)
+            exact = roi_ops.crop_resize_maxpool_exact(feats, boxes, 14, 2, 2)
             want = roi_ops.crop_resize_maxpool(feats, boxes, 14, 2, 2)
             torch.cuda.synchronize()
+            exact_err = float((got.float() - exact.float()).abs().max())
+            if not torch.equal(got, exact):
+                raise AssertionError(
+                    "roi_crop_maxpool: not bit-equal to its exact oracle (P=%d"
+                    ", %s, max |err| %r)" % (num_p, name, exact_err))
             err = compare(torch, got, want, name)
             line = {"kernel": "roi_crop_maxpool", "P": num_p, "dtype": name,
-                    "max_abs_err": err, "tol(rtol,atol)": TOL[name]}
-            if num_p == NUM_PROPOSALS:
-                nbytes = (feats.numel() * feats.element_size()
-                          + boxes.numel() * 4
-                          + got.numel() * got.element_size())
-                b_ms, b_by = bound_ms(nbytes, ROI_OPS_PER_OUTPUT * got.numel())
-                line.update(
-                    kernel_ms=cuda_ms(torch, lambda: roi_pool.roi_crop_maxpool(
-                        feats, boxes, 14, 2, 2), iters=20),
-                    plain_ms=cuda_ms(torch, lambda: roi_ops.crop_resize_maxpool(
-                        feats, boxes, 14, 2, 2), iters=3, warmup=1),
-                    bound_ms=b_ms, bound_by=b_by)
-                if dtype == torch.bfloat16:
-                    result = line
+                    "max_abs_err_exact": exact_err, "max_abs_err": err,
+                    "tol(rtol,atol)": TOL[name]}
+            if num_p == NUM_PROPOSALS and dtype == torch.bfloat16:
+                line["plain_ms"] = cuda_ms(
+                    torch, lambda: roi_ops.crop_resize_maxpool(
+                        feats, boxes, 14, 2, 2), iters=3, warmup=1)
+                result = {"max_abs_err": err, "plain_ms": line["plain_ms"]}
             log(json.dumps(line))
+
+    # Every shape the main path launches K1 at, with three box sets: exact
+    # against the oracle, within TOL of the plain version, timed beside its
+    # bound; the staged kernel must take each of them.
+    first = (roi_pool.staged_launches, roi_pool.generic_launches)
+    rng = np.random.default_rng(SEED + 3)
+    for label, shape, num_p in K1_SHAPES:
+        feats = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda().to(torch.bfloat16)
+        for box_set, only in BOX_SETS.items():
+            boxes = torch.from_numpy(np.stack([
+                make_boxes(rng, num_p, num_pad=num_p // 20, only=only)
+                for _ in range(shape[0])])).cuda()
+            got = roi_pool.roi_crop_maxpool(feats, boxes, 14, 2, 2)
+            exact = roi_ops.crop_resize_maxpool_exact(feats, boxes, 14, 2, 2)
+            torch.cuda.synchronize()
+            if not torch.equal(got, exact):
+                raise AssertionError(
+                    "roi_crop_maxpool: not bit-equal to its exact oracle (%s,"
+                    " %s boxes, max |err| %r)" % (label, box_set, float(
+                        (got.float() - exact.float()).abs().max())))
+            err = compare(torch, got, roi_ops.crop_resize_maxpool(
+                feats, boxes, 14, 2, 2), "bfloat16")
+            nbytes = (feats.numel() * feats.element_size() + boxes.numel() * 4
+                      + got.numel() * got.element_size())
+            b_ms, b_by = bound_ms(nbytes, ROI_OPS_PER_OUTPUT * got.numel())
+            positions = footprint_positions(torch, boxes, *shape[1:3], 14)
+            line = {"kernel": "roi_crop_maxpool", "shape": label,
+                    "features": list(shape), "P": num_p, "boxes": box_set,
+                    "max_abs_err_exact": 0.0, "max_abs_err": err,
+                    "kernel_ms": cuda_ms(torch, lambda: roi_pool.
+                                         roi_crop_maxpool(feats, boxes, 14,
+                                                          2, 2), iters=20),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "footprint_positions_per_proposal":
+                        positions / boxes.shape[0] / num_p,
+                    "footprint_bytes": positions * shape[-1] * 2}
+            line["kernel_over_bound"] = line["kernel_ms"] / b_ms
+            log(json.dumps(line))
+            if label == K1_SHAPES[0][0] and box_set == "mix":
+                result.update({k: line[k] for k in (
+                    "kernel_ms", "bound_ms", "bound_by")})
+    staged = roi_pool.staged_launches - first[0]
+    generic = roi_pool.generic_launches - first[1]
+    if generic or not staged:
+        raise AssertionError("roi_crop_maxpool: the model's shapes took the "
+                             "generic kernel (%d staged, %d generic launches)"
+                             % (staged, generic))
+    log("roi_crop_maxpool: %d staged launches, %d generic, at the model's "
+        "shapes" % (staged, generic))
     return result
 
 
@@ -439,6 +525,10 @@ def phase_serve(torch, profile=False):
                 pool_fwd=3 * num_scales * len(examples))
     if launches != want:
         raise AssertionError("launch counts %s, expected %s" % (launches, want))
+    if roi_pool.staged_launches != launches["roi_crop_maxpool"]:
+        raise AssertionError(
+            "serve: K1 took the generic kernel (%d of %d launches staged)"
+            % (roi_pool.staged_launches, launches["roi_crop_maxpool"]))
 
     for out in outs:
         for it in range(1 + opts.oicr_iterations):
@@ -535,16 +625,24 @@ def phase_roi_grad(torch):
         dtype=np.float32)).cuda()
     result = {"max_abs_err": 0.0}
     first = roi_pool.grad_launches
+    first_generic = roi_pool.grad_generic_launches
     for case, base in (("normal", normal), ("ties {0,1,2}", ties)):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             feats, grad = base.to(dtype), grad32.to(dtype)
             got = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2, 2)
+            exact = roi_ops.crop_resize_maxpool_grad(
+                feats, boxes, grad, 14, 2, 2, fixed_point=True)
             want = roi_ops.crop_resize_maxpool_grad(feats, boxes, grad, 14,
                                                     2, 2)
             again = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2,
                                                    2)
             torch.cuda.synchronize()
+            exact_err = float((got.float() - exact.float()).abs().max())
+            if not torch.equal(got, exact):
+                raise AssertionError(
+                    "roi_crop_maxpool_grad: not bit-equal to its fixed-point "
+                    "oracle (%s %s, max |err| %r)" % (case, name, exact_err))
             err = compare(torch, got, want, name, GRAD_TOL)
             run_to_run = float((got.float() - again.float()).abs().max())
             if not torch.equal(got, again):
@@ -553,7 +651,8 @@ def phase_roi_grad(torch):
                     "|diff| %r)" % (case, name, run_to_run))
             result["max_abs_err"] = max(result["max_abs_err"], err)
             line = {"kernel": "roi_crop_maxpool_grad", "case": case,
-                    "dtype": name, "max_abs_err": err,
+                    "dtype": name, "max_abs_err_exact": exact_err,
+                    "max_abs_err": err,
                     "tol(rtol,atol)": GRAD_TOL[name],
                     "max_abs_dF": float(want.float().abs().max()),
                     "run_to_run_max_abs_diff": run_to_run}
@@ -573,11 +672,36 @@ def phase_roi_grad(torch):
                                          feats, boxes, grad, 14, 2, 2),
                                      iters=2, warmup=1),
                     bound_ms=b_ms, bound_by=b_by)
+                line["kernel_over_bound"] = line["kernel_ms"] / b_ms
+                # Global int64 atomics, from the oracle with the kernel's
+                # rule: the generic kernel issues one per nonzero
+                # contribution; the staged one adds small footprints in
+                # shared memory first.
+                line.update(roi_pool.grad_atomic_counts(feats, boxes, grad,
+                                                        14, 2, 2))
                 result.update({k: line[k] for k in (
                     "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
             log(json.dumps(line))
+
+    # The same shape with all-wide and all-narrow boxes.
+    feats, grad = normal.to(torch.bfloat16), grad32.to(torch.bfloat16)
+    for box_set in ("wide", "narrow"):
+        boxes = torch.from_numpy(np.stack([
+            make_boxes(rng, TRAIN_P, num_pad=TRAIN_P // 20,
+                       only=BOX_SETS[box_set]) for _ in range(batch)])).cuda()
+        line = {"kernel": "roi_crop_maxpool_grad", "boxes": box_set,
+                "dtype": "bfloat16",
+                "kernel_ms": cuda_ms(torch, lambda: roi_pool.
+                                     roi_crop_maxpool_grad(
+                                         feats, boxes, grad, 14, 2, 2),
+                                     iters=20)}
+        line.update(roi_pool.grad_atomic_counts(feats, boxes, grad, 14, 2, 2))
+        log(json.dumps(line))
+    if roi_pool.grad_generic_launches != first_generic:
+        raise AssertionError("roi_crop_maxpool_grad: the coco17 shape took "
+                             "the generic kernel")
     log("roi_crop_maxpool_grad: %d launches in this phase (checks and "
-        "timing)" % (roi_pool.grad_launches - first))
+        "timing), all staged" % (roi_pool.grad_launches - first))
     return result
 
 
@@ -736,6 +860,9 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
         losses.append(float(logs["loss/total_loss"]))
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if roi_pool.generic_launches or roi_pool.grad_generic_launches:
+        raise AssertionError("train %s: K1 or K2 took the generic kernel"
+                             % tag)
     if not np.all(np.isfinite(losses)):
         raise AssertionError("train %s: non-finite loss %s" % (tag, losses))
     log("train %s: launches over %d steps %s (per step %s)" % (

@@ -53,37 +53,71 @@ def cuda():
     return torch.device("cuda")
 
 
-def _boxes(rng, batch, num_p):
-    y0 = rng.uniform(-0.3, 0.9, (batch, num_p))
-    x0 = rng.uniform(-0.3, 0.9, (batch, num_p))
-    boxes = np.stack(
-        [y0, x0, y0 + rng.uniform(0.02, 0.8, (batch, num_p)),
-         x0 + rng.uniform(0.02, 0.8, (batch, num_p))], -1)
+def _boxes(rng, batch, num_p, kind="mixed"):
+    """Seeded boxes: a mix of sizes partly outside the map, or all narrow
+    (2-10% of the map) or all wide (50-100%) inside it. The second box is
+    reversed (ymin > ymax, xmin > xmax) and the last two are zero padding."""
+    if kind == "mixed":
+        lo, size = rng.uniform(-0.3, 0.9, (2, batch, num_p)), rng.uniform(
+            0.02, 0.8, (2, batch, num_p))
+    else:
+        span = (0.02, 0.1) if kind == "narrow" else (0.5, 1.0)
+        size = rng.uniform(*span, (2, batch, num_p))
+        lo = rng.uniform(0.0, 1.0, (2, batch, num_p)) * (1.0 - size)
+    y0, x0 = lo
+    boxes = np.stack([y0, x0, y0 + size[0], x0 + size[1]], -1)
     boxes[:, : num_p // 3] = np.clip(boxes[:, : num_p // 3], 0.0, 1.0)
+    boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]
     boxes[:, -2:] = 0.0  # zero padding boxes
     return boxes.astype(np.float32)
 
 
+def _path_counts():
+    return (roi_pool.staged_launches, roi_pool.generic_launches,
+            roi_pool.grad_staged_launches, roi_pool.grad_generic_launches)
+
+
+# K1/K2 cases: the model's shapes (staged kernels) with mixed, all-narrow
+# and all-wide boxes, and what only the generic kernels take: rows of C
+# channels that are not a multiple of 16 bytes (C = 20 in bf16, 33, 130,
+# 1030) and a crop of 40, too large to stage.
+ROI_CASES = [((2, 9, 12, 20), 13, 14, 2, 2, "mixed"),
+             ((1, 76, 114, 576), 301, 14, 2, 2, "mixed"),
+             ((1, 10, 7, 130), 9, 6, 3, 1, "mixed"),
+             ((2, 5, 6, 33), 7, 7, 2, 2, "mixed"),
+             ((1, 76, 114, 576), 301, 14, 2, 2, "narrow"),
+             ((1, 76, 114, 576), 301, 14, 2, 2, "wide"),
+             ((1, 64, 64, 64), 9, 40, 2, 2, "mixed"),
+             ((1, 12, 14, 1030), 9, 14, 2, 2, "mixed")]
+ROI_IDS = ["small", "serving_width", "k3s1", "untiled", "serving_narrow",
+           "serving_wide", "crop40_generic", "c1030"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize(
-    "shape,num_p,crop,k,s",
-    [((2, 9, 12, 20), 13, 14, 2, 2),
-     ((1, 76, 114, 576), 301, 14, 2, 2),
-     ((1, 10, 7, 130), 9, 6, 3, 1),
-     ((2, 5, 6, 33), 7, 7, 2, 2)],
-    ids=["small", "serving_width", "k3s1", "untiled"])
-def test_roi_kernel_matches_plain(cuda, dtype, shape, num_p, crop, k, s):
+@pytest.mark.parametrize("shape,num_p,crop,k,s,box_kind", ROI_CASES,
+                         ids=ROI_IDS)
+def test_roi_kernel_matches_plain(cuda, dtype, shape, num_p, crop, k, s,
+                                  box_kind):
+    """K1 equals its exact oracle bit for bit, and the dense plain version
+    within the tolerance; the rule's kernel ran."""
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(
         rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
-    boxes = torch.from_numpy(_boxes(rng, shape[0], num_p)).to(cuda)
-    before = roi_pool.launches
+    boxes = torch.from_numpy(_boxes(rng, shape[0], num_p, box_kind)).to(cuda)
+    before, paths = roi_pool.launches, _path_counts()
     got = roi_pool.roi_crop_maxpool(feats, boxes, crop, k, s)
     assert roi_pool.launches == before + 1
+    staged = roi_pool._staged(crop, k, s, shape, dtype)
+    assert staged == (shape[-1] * feats.element_size() % 16 == 0
+                      and crop <= 32)
+    moved = tuple(b - a for a, b in zip(paths, _path_counts()))
+    assert moved == ((1, 0, 0, 0) if staged else (0, 1, 0, 0))
+    exact = roi_ops.crop_resize_maxpool_exact(feats, boxes, crop, k, s)
     want = roi_ops.crop_resize_maxpool(feats, boxes, crop, k, s)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, exact)
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
@@ -136,27 +170,41 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("quantised", [False, True], ids=["normal", "ties"])
 @pytest.mark.parametrize(
-    "shape,num_p,crop,k,s",
-    [((2, 9, 12, 20), 13, 14, 2, 2), ((2, 64, 96, 576), 100, 14, 2, 2),
-     ((1, 10, 7, 130), 9, 6, 3, 1)],
-    ids=["small", "coco_width", "k3s1"])
+    "shape,num_p,crop,k,s,box_kind",
+    [((2, 9, 12, 20), 13, 14, 2, 2, "mixed"),
+     ((2, 64, 96, 576), 100, 14, 2, 2, "mixed"),
+     ((1, 10, 7, 130), 9, 6, 3, 1, "mixed"),
+     ((2, 64, 96, 576), 100, 14, 2, 2, "narrow"),
+     ((2, 64, 96, 576), 100, 14, 2, 2, "wide"),
+     ((1, 12, 14, 64), 9, 6, 3, 1, "mixed"),
+     ((1, 64, 64, 64), 9, 40, 2, 2, "mixed")],
+    ids=["small", "coco_width", "k3s1", "coco_narrow", "coco_wide",
+         "k3s1_staged", "crop40_generic"])
 def test_roi_grad_kernel_matches_plain(cuda, dtype, quantised, shape, num_p,
-                                       crop, k, s):
+                                       crop, k, s, box_kind):
+    """K2 equals its fixed-point oracle bit for bit, and the float32 plain
+    version within the tolerance; the rule's kernel ran."""
     rng = np.random.default_rng(2)
     feats = (rng.integers(0, 3, shape) if quantised
              else rng.standard_normal(shape)).astype(np.float32)
     feats = torch.from_numpy(feats).to(cuda, dtype)
-    boxes = torch.from_numpy(_boxes(rng, shape[0], num_p)).to(cuda)
+    boxes = torch.from_numpy(_boxes(rng, shape[0], num_p, box_kind)).to(cuda)
     pooled = (crop - k) // s + 1
     grad = torch.from_numpy(rng.standard_normal(
         (shape[0], num_p, pooled, pooled, shape[-1]), dtype=np.float32)).to(
             cuda, dtype)
-    before = roi_pool.grad_launches
+    before, paths = roi_pool.grad_launches, _path_counts()
     got = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, crop, k, s)
     assert roi_pool.grad_launches == before + 1
+    staged = roi_pool._staged(crop, k, s, shape, dtype)
+    moved = tuple(b - a for a, b in zip(paths, _path_counts()))
+    assert moved == ((0, 0, 1, 0) if staged else (0, 0, 0, 1))
+    exact = roi_ops.crop_resize_maxpool_grad(feats, boxes, grad, crop, k, s,
+                                             fixed_point=True)
     want = roi_ops.crop_resize_maxpool_grad(feats, boxes, grad, crop, k, s)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == feats.shape
+    assert torch.equal(got, exact)
     rtol, atol = GRAD_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)

@@ -117,12 +117,18 @@ def _c_params(source, name):
 @pytest.mark.parametrize("source,name,argtypes", [
     ("pool.cu", "cap2det_pool_same_fwd", pool_grad._FWD_ARGTYPES),
     ("pool_grad.cu", "cap2det_pool_same_grad", pool_grad._GRAD_ARGTYPES),
-    ("roi_pool.cu", "cap2det_roi_crop_maxpool_fwd", roi_pool._FWD_ARGTYPES),
-    ("roi_pool_bwd.cu", "cap2det_roi_crop_maxpool_bwd",
-     roi_pool._BWD_ARGTYPES),
+    ("roi_pool.cu", "cap2det_roi_crop_maxpool_fwd_staged",
+     roi_pool._FWD_STAGED_ARGTYPES),
+    ("roi_pool_bwd.cu", "cap2det_roi_crop_maxpool_bwd_staged",
+     roi_pool._BWD_STAGED_ARGTYPES),
     ("roi_pool_bwd.cu", "cap2det_roi_grad_from_fixed",
      roi_pool._FROM_FIXED_ARGTYPES),
-], ids=["K4", "K5_K6", "K1", "K2", "K2_from_fixed"])
+    ("roi_pool.cu", "cap2det_roi_crop_maxpool_fwd_generic",
+     roi_pool._FWD_GENERIC_ARGTYPES),
+    ("roi_pool_bwd.cu", "cap2det_roi_crop_maxpool_bwd_generic",
+     roi_pool._BWD_GENERIC_ARGTYPES),
+], ids=["K4", "K5_K6", "K1", "K2", "K2_from_fixed", "K1_generic",
+        "K2_generic"])
 def test_argtypes_match_the_c_signatures(source, name, argtypes):
     """ctypes checks only that enough arguments are passed: a declared
     type too many shows up only on the card."""

@@ -113,3 +113,75 @@ def test_wrapper_contract():
         roi_pool.roi_crop_maxpool(f[:, :1], b, 6)
     with pytest.raises(ValueError):
         roi_pool.roi_crop_maxpool(f, b[..., :3], 6)
+
+
+def _reversed(boxes):
+    boxes = boxes.copy()
+    boxes[:, 1] = boxes[:, 1, [2, 3, 0, 1]]  # ymin > ymax, xmin > xmax
+    return boxes
+
+
+@pytest.mark.parametrize("crop", [6, 14])
+def test_exact_oracle_matches_plain_and_pallas(crop):
+    """``crop_resize_maxpool_exact`` (the kernels' sample arithmetic, which
+    the CUDA forward equals bit for bit) within the plain version's
+    tolerances, with boxes outside the map, a reversed box and zero padding
+    boxes."""
+    features, boxes = _case(7)
+    boxes = _reversed(boxes)
+    f, b = torch.from_numpy(features), torch.from_numpy(boxes)
+    got = roi.crop_resize_maxpool_exact(f, b, crop, 2, 2).numpy()
+    np.testing.assert_allclose(got, _port(features, boxes, crop), rtol=1e-5,
+                               atol=1e-5)
+    want = np.asarray(jax_roi_pool.roi_crop_maxpool(
+        features, boxes, crop, 2, 2, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    # A zero padding box samples the top-left cell everywhere.
+    np.testing.assert_array_equal(
+        got[0, -1], np.broadcast_to(features[0, 0, 0], got[0, -1].shape))
+
+
+@pytest.mark.parametrize("crop,k,s", [(6, 3, 1), (7, 2, 2)])
+def test_exact_oracle_matches_xla_reference_on_other_pools(crop, k, s):
+    features, boxes = _case(8)
+    boxes = _reversed(boxes)
+    want = np.asarray(jax_roi.crop_resize_maxpool(features, boxes, crop, k, s))
+    got = roi.crop_resize_maxpool_exact(
+        torch.from_numpy(features), torch.from_numpy(boxes), crop, k, s)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_exact_oracle_chunks_and_rounds_like_the_kernel(monkeypatch):
+    """Chunking changes no bit; bf16 is the float32 result of the
+    bf16-rounded map, rounded once."""
+    features, boxes = _case(9)
+    f, b = torch.from_numpy(features).bfloat16(), torch.from_numpy(boxes)
+    whole = roi.crop_resize_maxpool_exact(f, b, 6, 2, 2)
+    assert whole.dtype == torch.bfloat16
+    assert torch.equal(
+        whole, roi.crop_resize_maxpool_exact(f.float(), b, 6, 2, 2).bfloat16())
+    monkeypatch.setattr(roi, "_CHUNK_BYTES", 1)  # one proposal per chunk
+    assert torch.equal(roi.crop_resize_maxpool_exact(f, b, 6, 2, 2), whole)
+
+
+@pytest.mark.parametrize("crop,k,s,shape,dtype,aligned,staged", [
+    (14, 2, 2, (1, 76, 114, 576), torch.bfloat16, True, True),
+    (14, 2, 2, (2, 64, 96, 576), torch.float32, True, True),
+    (14, 2, 2, (1, 26, 38, 576), torch.bfloat16, True, True),
+    (6, 3, 1, (1, 12, 14, 64), torch.bfloat16, True, True),
+    (14, 2, 2, (2, 9, 12, 20), torch.float32, True, True),
+    (14, 2, 2, (2, 9, 12, 20), torch.bfloat16, True, False),  # 40-byte rows
+    (6, 3, 1, (1, 10, 7, 130), torch.float32, True, False),
+    (14, 2, 2, (1, 12, 14, 1030), torch.bfloat16, True, False),
+    (14, 2, 2, (1, 76, 114, 576), torch.bfloat16, False, False),
+    (20, 2, 2, (1, 64, 64, 64), torch.bfloat16, True, True),
+    (21, 3, 2, (1, 64, 64, 64), torch.bfloat16, True, True),
+    (32, 1, 1, (1, 64, 64, 64), torch.bfloat16, True, False),  # 224 KB
+    (32, 1, 1, (1, 64, 64, 64), torch.float32, True, True),  # 192 KB
+    (40, 2, 2, (1, 64, 64, 64), torch.bfloat16, True, False),
+    (40, 2, 2, (1, 9, 9, 64), torch.bfloat16, True, False),  # crop > 32
+    (17, 17, 1, (1, 20, 20, 64), torch.float32, True, False),  # 289 taps
+])
+def test_staged_rule(crop, k, s, shape, dtype, aligned, staged):
+    """Which kernel K1 and K2 launch, decided on the host."""
+    assert roi_pool._staged(crop, k, s, shape, dtype, aligned) is staged
