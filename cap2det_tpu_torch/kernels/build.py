@@ -149,6 +149,12 @@ def function(name, argtypes):
     return fn
 
 
+def aligned(*tensors):
+    """True when every tensor's data starts on a 16-byte boundary, as the
+    kernels' 16-byte lanes need."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def check(rc, name):
     """Raises if a launch returned a CUDA error code."""
     if rc != 0:

@@ -9,7 +9,10 @@ plain version for CPU tensors: ``pool_fwd`` (K4, ``csrc/pool.cu``),
 second-stage pool: a ``torch.autograd.Function`` whose forward is K4 and
 whose backward is K5 or K6. Max-pool gradients route first-tie, as TF
 MaxPoolGrad and the Pallas kernels do: the whole gradient of a window goes
-to its first maximal tap in row-major order.
+to its first maximal tap in row-major order. K5 and K6 each have a tiled
+kernel (a block per ROI and channel tile, the windows' work once in shared
+memory) and an untiled one for maps too large to tile; ``_tiled`` picks
+one on the host.
 """
 
 from __future__ import annotations
@@ -24,13 +27,27 @@ from cap2det_tpu_torch.kernels import build
 
 KINDS = ("pool_max", "pool_avg")
 
-# Launch counts of K4 (pool_fwd), K5 (maxpool_grad) and K6 (avgpool_grad).
+# The tiled kernels' limits (csrc/pool_common.cuh, csrc/pool_grad.cu):
+# shared memory a block may take, lanes per channel tile (16-byte lanes on
+# the vector path, one channel each on the scalar path), and the largest
+# max-pool kernel whose tap index fits a byte.
+SMEM_BUDGET = 48 * 1024
+VEC_LANES = 8
+SCALAR_LANES = 32
+MAX_TILED_MAX_KERNEL = 16
+
+# Launch counts of K4 (pool_fwd), K5 (maxpool_grad) and K6 (avgpool_grad),
+# and of K5 and K6 by kernel.
 launches = 0
 maxpool_grad_launches = 0
 avgpool_grad_launches = 0
+maxpool_grad_tiled_launches = 0
+maxpool_grad_untiled_launches = 0
+avgpool_grad_tiled_launches = 0
+avgpool_grad_untiled_launches = 0
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-_GRAD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+_GRAD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
                   + [ctypes.c_void_p])
 
 
@@ -127,6 +144,38 @@ def avgpool_grad_plain(x_shape, dtype, g, kernel, stride):
     return acc[:, pad_t:pad_t + h, pad_l:pad_l + w].to(dtype)
 
 
+def _tiling(channels, dtype, aligned=True):
+    """(vector, channels per tile) of a launch, as `tiling_for` in
+    csrc/pool_common.cuh: 16-byte lanes when a row of C channels is a
+    multiple of 16 bytes and every pointer is 16-byte aligned, else one
+    channel per lane."""
+    vector = aligned and (channels * dtype.itemsize) % 16 == 0
+    return vector, (16 // dtype.itemsize * VEC_LANES if vector
+                    else SCALAR_LANES)
+
+
+def _tiled(shape, dtype, kernel, stride, kind, aligned=True):
+    """Which kernel K5 (kind "pool_max") or K6 ("pool_avg") launches for x
+    of `shape`: the tiled one when its shared memory fits SMEM_BUDGET (max:
+    the x and g tiles and a winner byte per window and channel; avg: g /
+    count per window and channel in float32), a max kernel is at most
+    MAX_TILED_MAX_KERNEL and the indices fit 32 bits; else the untiled
+    one. The same rule as `tiled_fits` in csrc/pool_grad.cu, which
+    refuses a tiled launch that breaks it."""
+    n, h, w, c = shape
+    itemsize = dtype.itemsize
+    _, ct = _tiling(c, dtype, aligned)
+    out_h, out_w, _ = _geometry(h, w, kernel, stride)
+    windows = out_h * out_w * ct
+    if kind == "pool_max":
+        smem = (h * w * ct + windows) * itemsize + windows
+    else:
+        smem = windows * 4
+    return ((kind != "pool_max" or kernel <= MAX_TILED_MAX_KERNEL)
+            and smem <= SMEM_BUDGET and h * w * c < 2 ** 31
+            and n * -(-c // ct) < 2 ** 31)
+
+
 def _check_nhwc(name, t):
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("%s: tensors must be float32 or bfloat16, got %s"
@@ -158,7 +207,8 @@ def _launch_fwd(x, kind, kernel, stride):
 
 
 def _launch_grad(x, g, x_shape, dtype, kind, kernel, stride):
-    """K5 (x given) or K6 (x None) on the card."""
+    """K5 (x given) or K6 (x None) on the card; returns dx and whether the
+    tiled kernel ran (None when dx is empty and nothing launched)."""
     name = "maxpool_grad" if x is not None else "avgpool_grad"
     _check_nhwc(name, g)
     if g.dtype != dtype:
@@ -173,17 +223,20 @@ def _launch_grad(x, g, x_shape, dtype, kind, kernel, stride):
     out_w, pad_l, _ = same_pads(w, kernel, stride)
     dx = torch.empty(x_shape, dtype=dtype, device=g.device)
     if dx.numel() == 0:
-        return dx
+        return dx, None
+    tiled = _tiled(x_shape, dtype, kernel, stride, kind,
+                   build.aligned(g, dx, *([x] if x is not None else [])))
     fn = build.function("cap2det_pool_same_grad", _GRAD_ARGTYPES)
     with torch.cuda.device(g.device):
         rc = fn(
             x.data_ptr() if x is not None else None, g.data_ptr(),
             dx.data_ptr(), n, h, w, c, out_h, out_w, kernel, stride, pad_t,
-            pad_l, int(kind == "pool_max"), int(dtype == torch.bfloat16),
+            pad_l, int(kind == "pool_max"), int(tiled),
+            int(dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(rc, name)
-    return dx
+    return dx, tiled
 
 
 def _check_args(name, shape, kernel, stride):
@@ -215,13 +268,17 @@ def pool_fwd(x, kind, kernel, stride):
 def maxpool_grad(x, g, kernel, stride):
     """dx of y = SAME max-pool(x) given upstream g [N, OH, OW, C] (K5),
     first-tie routing, in x's dtype."""
-    global maxpool_grad_launches
+    global maxpool_grad_launches, maxpool_grad_tiled_launches
+    global maxpool_grad_untiled_launches
     _check_args("maxpool_grad", x.shape, kernel, stride)
     _check_g("maxpool_grad", x.shape, g, kernel, stride)
     if x.is_cuda or g.is_cuda:
-        dx = _launch_grad(x, g, tuple(x.shape), x.dtype, "pool_max", kernel,
-                          stride)
-        maxpool_grad_launches += 1
+        dx, tiled = _launch_grad(x, g, tuple(x.shape), x.dtype, "pool_max",
+                                 kernel, stride)
+        if tiled is not None:
+            maxpool_grad_launches += 1
+            maxpool_grad_tiled_launches += tiled
+            maxpool_grad_untiled_launches += not tiled
         return dx
     return maxpool_grad_plain(x, g, kernel, stride)
 
@@ -229,13 +286,18 @@ def maxpool_grad(x, g, kernel, stride):
 def avgpool_grad(x_shape, dtype, g, kernel, stride):
     """dx of y = SAME avg-pool(x) given upstream g (K6): linear, so only
     x's shape and dtype are needed."""
-    global avgpool_grad_launches
+    global avgpool_grad_launches, avgpool_grad_tiled_launches
+    global avgpool_grad_untiled_launches
     x_shape = tuple(x_shape)
     _check_args("avgpool_grad", x_shape, kernel, stride)
     _check_g("avgpool_grad", x_shape, g, kernel, stride)
     if g.is_cuda:
-        dx = _launch_grad(None, g, x_shape, dtype, "pool_avg", kernel, stride)
-        avgpool_grad_launches += 1
+        dx, tiled = _launch_grad(None, g, x_shape, dtype, "pool_avg", kernel,
+                                 stride)
+        if tiled is not None:
+            avgpool_grad_launches += 1
+            avgpool_grad_tiled_launches += tiled
+            avgpool_grad_untiled_launches += not tiled
         return dx
     return avgpool_grad_plain(x_shape, dtype, g, kernel, stride)
 

@@ -101,10 +101,6 @@ def _staged(crop_size, pool_kernel, pool_stride, shape, dtype, aligned=True):
                                   height, width, itemsize) <= STAGED_SMEM)
 
 
-def _aligned(*tensors):
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
 def _pooled(crop_size, pool_kernel, pool_stride):
     return (crop_size - pool_kernel) // pool_stride + 1
 
@@ -144,7 +140,7 @@ def _launch(features, boxes, crop_size, pool_kernel, pool_stride):
     if out.numel() == 0:
         return out
     staged = _staged(crop_size, pool_kernel, pool_stride, features.shape,
-                     features.dtype, _aligned(features, out))
+                     features.dtype, build.aligned(features, out))
     args = (features.data_ptr(), boxes.data_ptr(), out.data_ptr(), batch,
             height, width, channels, num_p, crop_size, pool_kernel,
             pool_stride, int(features.dtype == torch.bfloat16))
@@ -181,7 +177,7 @@ def _launch_grad(features, boxes, grad, crop_size, pool_kernel, pool_stride):
     if num_p == 0 or features.numel() == 0:
         return torch.zeros_like(features)
     staged = _staged(crop_size, pool_kernel, pool_stride, features.shape,
-                     features.dtype, _aligned(features, grad))
+                     features.dtype, build.aligned(features, grad))
     # The kernel adds 64-bit fixed-point values (2^-32 units) into an int64
     # map with integer atomics, so dF has the same bits in every run; a
     # second kernel converts it to the features' dtype.

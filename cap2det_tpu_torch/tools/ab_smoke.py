@@ -1,6 +1,7 @@
 """Runs ``chip_smoke.py`` from two unpacked trees of the repository on one
 GPU, in the order parent, change, change, parent, and prints each run's
-kernel times and end-to-end medians, one JSON line per run.
+kernel times (the kernels line and every timed row of the kernel phases)
+and end-to-end medians, one JSON line per run.
 
 Host-clock medians move 15-40% between runs of the same code, so a change
 is compared with its parent only inside one such sequence on one card.
@@ -35,14 +36,28 @@ MEDIAN = re.compile(r"^(serve|train \S+): seconds per (?:image|step) over "
                     r"\d+ (?:images|steps): median ([0-9.e-]+)", re.M)
 
 
+# The fields that name a timed row of a kernel phase.
+ROW_KEYS = ("shape", "boxes", "case", "P", "dtype")
+
+
 def summarize(log):
-    """{"kernels": {name: ms}, "medians": {path: s}} of one run's output."""
-    kernels = {}
+    """{"kernels": {name: ms}, "rows": {row: ms}, "medians": {path: s}} of
+    one run's output; a row is a timed line of a kernel phase, named by its
+    kernel and ROW_KEYS, and its device-only time, where the line has one,
+    a row of its own."""
+    kernels, rows = {}, {}
     for line in log.splitlines():
         if line.startswith('{"kernels"'):
             kernels = {k["name"]: k["ms"] for k in json.loads(line)["kernels"]}
+        elif line.startswith('{"kernel"') and '"kernel_ms"' in line:
+            row = json.loads(line)
+            name = " ".join([row["kernel"]] + [str(row[k]) for k in ROW_KEYS
+                                               if k in row])
+            rows[name] = row["kernel_ms"]
+            if "device_ms" in row:
+                rows[name + " (device)"] = row["device_ms"]
     medians = {m.group(1): float(m.group(2)) for m in MEDIAN.finditer(log)}
-    return {"kernels": kernels, "medians": medians}
+    return {"kernels": kernels, "rows": rows, "medians": medians}
 
 
 def main(argv=None):

@@ -14,7 +14,7 @@ import torch
 
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
-from cap2det_tpu_torch.kernels import pool_grad, roi_pool
+from cap2det_tpu_torch.kernels import build, pool_grad, roi_pool
 from cap2det_tpu_torch.models import registry
 from cap2det_tpu_torch.ops import roi as roi_ops
 from cap2det_tpu_torch.train import trainer
@@ -210,41 +210,90 @@ def test_roi_grad_kernel_matches_plain(cuda, dtype, quantised, shape, num_p,
                                atol=atol)
 
 
+def _pool_grad_counts(kind):
+    """(launches, tiled, untiled) of K5 (pool_max) or K6 (pool_avg)."""
+    name = "maxpool_grad" if kind == "pool_max" else "avgpool_grad"
+    return tuple(getattr(pool_grad, name + suffix) for suffix in
+                 ("_launches", "_tiled_launches", "_untiled_launches"))
+
+
+def _run_pool_grad(kind, x, g, k, s):
+    """The kernel and its plain version on x, g; asserts one launch of the
+    kernel the host's rule picks (tiled or untiled) and returns (got,
+    want, tiled)."""
+    dtype = x.dtype
+    before = _pool_grad_counts(kind)
+    if kind == "pool_max":
+        got = pool_grad.maxpool_grad(x, g, k, s)
+        want = pool_grad.maxpool_grad_plain(x, g, k, s)
+        aligned = build.aligned(x, g)
+    else:
+        got = pool_grad.avgpool_grad(x.shape, dtype, g, k, s)
+        want = pool_grad.avgpool_grad_plain(x.shape, dtype, g, k, s)
+        aligned = build.aligned(g)
+    tiled = pool_grad._tiled(x.shape, dtype, k, s, kind, aligned)
+    after = _pool_grad_counts(kind)
+    assert tuple(b - a for a, b in zip(before, after)) == (
+        1, int(tiled), int(not tiled))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    return got, want, tiled
+
+
+# K5/K6 cases: the model's shapes (coco17 N=1000, voc07 N=2000), small
+# odd maps, a ragged C = 20 (40 bytes a row in bf16: one channel per lane;
+# 80 in float32: a partial tile of 16-byte lanes) and EXTRA_POOL_SHAPES.
+MODEL_POOL_SHAPES = [((1000, 7, 7, 576), 3, 2), ((1000, 4, 4, 1024), 3, 1),
+                     ((2000, 4, 4, 1024), 3, 1)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", ["pool_max", "pool_avg"])
 @pytest.mark.parametrize(
     "shape,k,s",
-    [((1000, 7, 7, 576), 3, 2), ((1000, 4, 4, 1024), 3, 1),
-     ((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2)] + EXTRA_POOL_SHAPES,
-    ids=["mixed5a", "mixed5bc", "odd", "even_kernel"] + EXTRA_POOL_IDS)
+    MODEL_POOL_SHAPES + [((3, 5, 9, 20), 3, 2), ((4, 6, 8, 7), 2, 2),
+                         ((5, 4, 4, 20), 3, 1)] + EXTRA_POOL_SHAPES,
+    ids=["mixed5a", "mixed5bc", "voc07_mixed5bc", "odd", "even_kernel",
+         "ragged_c20"] + EXTRA_POOL_IDS)
 def test_pool_grad_kernels_match_plain(cuda, dtype, kind, shape, k, s):
-    """Same winners, same f32 summation order: the max form is bit-equal
-    to its plain version in float32, the rest within the tolerance. x is
-    quantised (ties)."""
+    """Same winners, same divisions, the same float32 sums in the same
+    order, rounded once: K5 and K6 equal their plain versions bit for bit
+    in both dtypes. x is quantised (ties). The model's shapes take the
+    tiled kernel."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 3, shape).astype(np.float32)).to(
         cuda, dtype)
     out_shape = (shape[0], -(-shape[1] // s), -(-shape[2] // s), shape[3])
     g = torch.from_numpy(rng.standard_normal(out_shape, dtype=np.float32)).to(
         cuda, dtype)
-    if kind == "pool_max":
-        before = pool_grad.maxpool_grad_launches
-        got = pool_grad.maxpool_grad(x, g, k, s)
-        assert pool_grad.maxpool_grad_launches == before + 1
-        want = pool_grad.maxpool_grad_plain(x, g, k, s)
-    else:
-        before = pool_grad.avgpool_grad_launches
-        got = pool_grad.avgpool_grad(x.shape, dtype, g, k, s)
-        assert pool_grad.avgpool_grad_launches == before + 1
-        want = pool_grad.avgpool_grad_plain(x.shape, dtype, g, k, s)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == x.shape
-    rtol, atol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
-    if kind == "pool_max" and dtype == torch.float32:
-        assert torch.equal(got, want)
+    got, want, tiled = _run_pool_grad(kind, x, g, k, s)
+    if (shape, k, s) in MODEL_POOL_SHAPES:
+        assert tiled
+    assert torch.equal(got, want), float((got.float() - want.float()).abs()
+                                         .max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["pool_max", "pool_avg"])
+def test_pool_grad_kernels_take_a_misaligned_g(cuda, dtype, kind):
+    """g one element past a 16-byte boundary (a storage offset of one):
+    the tiled kernel runs with one channel per lane and gives the same
+    bits."""
+    rng = np.random.default_rng(9)
+    shape, k, s = (6, 4, 4, 64), 3, 1
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        cuda, dtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    g = flat[1:].view(shape)
+    g.copy_(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)))
+    assert g.is_contiguous() and not build.aligned(g)
+    assert pool_grad._tiling(shape[-1], dtype, aligned=False)[0] is False
+    got, want, tiled = _run_pool_grad(kind, x, g, k, s)
+    assert tiled
+    assert torch.equal(got, want), float((got.float() - want.float()).abs()
+                                         .max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

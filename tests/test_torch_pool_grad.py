@@ -1,7 +1,9 @@
 """Plain versions of the port's SAME pool backward kernels (K5 max, K6
 avg) against the JAX package: ``maxpool_grad_reference`` and the Pallas
 kernels in interpret mode, which route max-pool ties first-tie as the port
-does. Also the autograd Function (K4 forward, K5/K6 backward) on the CPU.
+does. Also the autograd Function (K4 forward, K5/K6 backward) on the CPU,
+the order of K6's float32 sums that its kernel copies, and the host's rule
+for the tiled and untiled kernels.
 
 Tie-rich inputs are quantised to {0, 1, 2}. Against the reference the
 max-pool gradient moves whole values in the same order (exact); the
@@ -94,6 +96,97 @@ def test_function_backward_is_the_plain_version(kind, shape, k, s):
     assert torch.equal(dx, want)
 
 
+def _avgpool_grad_by_pixel(x_shape, g, kernel, stride):
+    """dx of the SAME avg pool in float32, pixel by pixel: g / count of each
+    window containing the pixel, added from 0 in descending (oy, ox)."""
+    n, h, w, c = x_shape
+    out_h, pad_t, _ = pool_grad.same_pads(h, kernel, stride)
+    out_w, pad_l, _ = pool_grad.same_pads(w, kernel, stride)
+
+    def span(o, pad, size):
+        lo = o * stride - pad
+        return max(lo, 0), min(lo + kernel, size)
+
+    dx = np.zeros((n, h, w, c), np.float32)
+    for iy in range(h):
+        for ix in range(w):
+            acc = np.zeros((n, c), np.float32)
+            for oy in reversed(range(out_h)):
+                y_lo, y_hi = span(oy, pad_t, h)
+                if not y_lo <= iy < y_hi:
+                    continue
+                for ox in reversed(range(out_w)):
+                    x_lo, x_hi = span(ox, pad_l, w)
+                    if not x_lo <= ix < x_hi:
+                        continue
+                    count = np.float32((y_hi - y_lo) * (x_hi - x_lo))
+                    acc = acc + g[:, oy, ox] / count
+            dx[:, iy, ix] = acc
+    return dx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,k,s", [
+    ((3, 4, 4, 40), 3, 1), ((2, 7, 7, 24), 3, 2), ((3, 5, 9, 20), 3, 2),
+    ((4, 6, 8, 7), 2, 2)], ids=["4x4_s1", "7x7_s2", "odd_5x9_s2",
+                                "even_kernel"])
+def test_plain_avgpool_grad_adds_windows_in_descending_order(dtype, shape, k,
+                                                             s):
+    """The plain K6 equals, bit for bit, float32 sums that walk each
+    pixel's windows in descending (oy, ox) from 0, rounded once to the
+    dtype: the order and arithmetic the kernel copies."""
+    _, g = _case(shape, s, 6, quantised=False)
+    gt = torch.from_numpy(g).to(dtype)
+    want = torch.from_numpy(_avgpool_grad_by_pixel(
+        shape, gt.float().numpy(), k, s)).to(dtype)
+    got = pool_grad.avgpool_grad_plain(shape, dtype, gt, k, s)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["pool_max", "pool_avg"])
+@pytest.mark.parametrize("shape,k,s", [((1000, 7, 7, 576), 3, 2),
+                                       ((1000, 4, 4, 1024), 3, 1)],
+                         ids=["mixed5a", "mixed5bc"])
+def test_model_shapes_take_the_tiled_kernels(dtype, kind, shape, k, s):
+    assert pool_grad._tiling(shape[-1], dtype) == (
+        True, 64 if dtype == torch.bfloat16 else 32)
+    assert pool_grad._tiled(shape, dtype, k, s, kind)
+
+
+@pytest.mark.parametrize("shape,k,s,kind,tiled", [
+    ((2, 40, 40, 64), 3, 2, "pool_max", False),
+    ((2, 40, 40, 64), 3, 2, "pool_avg", False),
+    ((2, 4, 4, 8), 17, 1, "pool_max", False),
+    ((2, 4, 4, 8), 17, 1, "pool_avg", True),
+    ((2, 4, 4, 8), 16, 1, "pool_max", True),
+], ids=["k5_large_map", "k6_large_map", "k5_kernel17", "k6_kernel17",
+        "k5_kernel16"])
+def test_untiled_kernels_take_what_the_tiled_cannot(shape, k, s, kind,
+                                                    tiled):
+    """Maps whose tile exceeds the shared-memory budget, and max kernels
+    whose tap index would not fit a byte, run the untiled kernel."""
+    assert pool_grad._tiled(shape, torch.float32, k, s, kind) == tiled
+
+
+@pytest.mark.parametrize("dtype,aligned,want", [
+    (torch.bfloat16, True, (False, 32)),
+    (torch.float32, True, (True, 32)),
+    (torch.float32, False, (False, 32)),
+], ids=["bf16_40_bytes", "f32_80_bytes", "f32_misaligned"])
+def test_ragged_or_misaligned_rows_take_one_channel_per_lane(dtype, aligned,
+                                                             want):
+    """C = 20: 40 bytes a row in bf16 (not a multiple of 16) take the
+    scalar path; 80 in float32 take 16-byte lanes unless a pointer is
+    misaligned. Either way the tiled kernel runs at 4x4."""
+    assert pool_grad._tiling(20, dtype, aligned) == want
+    for kind in ("pool_max", "pool_avg"):
+        assert pool_grad._tiled((5, 4, 4, 20), dtype, 3, 1, kind, aligned)
+
+
 def test_plain_bf16_rounds_the_f32_result():
     x, g = _case((2, 7, 7, 4), 2, 4, quantised=False)
     xb = torch.from_numpy(x).bfloat16()
@@ -138,13 +231,14 @@ def test_argtypes_match_the_c_signatures(source, name, argtypes):
 def test_wrappers_check_shapes_and_count_no_plain_launches():
     x, g = _case((2, 7, 7, 4), 2, 5)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
-    before = (pool_grad.launches, pool_grad.maxpool_grad_launches,
-              pool_grad.avgpool_grad_launches)
+    counters = ("launches", "maxpool_grad_launches", "avgpool_grad_launches",
+                "maxpool_grad_tiled_launches", "maxpool_grad_untiled_launches",
+                "avgpool_grad_tiled_launches", "avgpool_grad_untiled_launches")
+    before = [getattr(pool_grad, name) for name in counters]
     out = pool_grad.pool_same(xt.requires_grad_(True), "pool_max", 3, 2)
     out.backward(gt)
     pool_grad.avgpool_grad(x.shape, torch.float32, gt, 3, 2)
-    assert (pool_grad.launches, pool_grad.maxpool_grad_launches,
-            pool_grad.avgpool_grad_launches) == before
+    assert [getattr(pool_grad, name) for name in counters] == before
     with pytest.raises(ValueError, match="g must be"):
         pool_grad.maxpool_grad(xt.detach(), gt[:, :3], 3, 2)
     with pytest.raises(ValueError, match="g must be"):
