@@ -85,7 +85,10 @@ class MultiScalePredictor:
             else:
                 score_sum = {k: score_sum[k] + scores[k] for k in score_sum}
 
-        score_mean = {k: v / len(self._min_dims) for k, v in score_sum.items()}
+        # A tensor divisor: CUDA turns division by a Python scalar into a
+        # reciprocal multiply, up to one ulp off numpy's quotient.
+        num_scales = torch.tensor(float(len(self._min_dims)), device=dev)
+        score_mean = {k: v / num_scales for k, v in score_sum.items()}
         results = model.postprocess(score_mean, props[None], num)
         out = {k: v[0].cpu().numpy() for k, v in results.items()}
         out["image_id"] = example.get("image_id")

@@ -103,21 +103,38 @@ class Cap2DetModel:
 
     # -- batches ----------------------------------------------------------------
 
+    def pipeline_kwargs(self):
+        """The input pipeline's arguments that the model decides."""
+        return {"label_extractor": self.label_extractor}
+
     def device_batch(self, host_batch):
         """A host training batch (``InputFields`` keys) -> the batch
         ``loss`` reads, as tensors on the model's device. The canvas stays
-        raw [B, H, W, 3] (uint8 from the pipeline); the forward casts it."""
+        raw [B, H, W, 3] (uint8 from the pipeline); the forward casts it.
+
+        On a CUDA model each array is first copied into page-locked host
+        memory (a page-locked tensor is used as it is) and sent with
+        ``non_blocking=True``, so the copy overlaps the work queued before
+        it. The page-locked tensors ride along under "pinned": the caller
+        keeps the batch until the step that reads it has been queued.
+        """
         dev = self._device
-        return {
-            "image": torch.as_tensor(host_batch[InputFields.image],
-                                     device=dev),
-            "proposals": torch.as_tensor(host_batch[InputFields.proposals],
-                                         dtype=torch.float32, device=dev),
-            "num_proposals": torch.as_tensor(
-                host_batch[InputFields.num_proposals], device=dev),
-            "labels": torch.as_tensor(host_batch[InputFields.pseudo_labels],
-                                      dtype=torch.float32, device=dev),
+        arrays = {
+            "image": host_batch[InputFields.image],
+            "proposals": np.asarray(host_batch[InputFields.proposals],
+                                    np.float32),
+            "num_proposals": host_batch[InputFields.num_proposals],
+            "labels": np.asarray(host_batch[InputFields.pseudo_labels],
+                                 np.float32),
         }
+        if dev.type != "cuda":
+            return {k: torch.as_tensor(v, device=dev)
+                    for k, v in arrays.items()}
+        pinned = {k: torch.as_tensor(v).pin_memory()
+                  for k, v in arrays.items()}
+        batch = {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+        batch["pinned"] = pinned
+        return batch
 
     # -- forward ----------------------------------------------------------------
 

@@ -52,7 +52,10 @@ def dropout(x, keep_prob, generator):
     probability keep_prob from `generator` (on x's device)."""
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=torch.float32) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    # A tensor divisor: CUDA turns division by a Python scalar into a
+    # reciprocal multiply, up to one ulp off the IEEE quotient.
+    divisor = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / divisor, torch.zeros_like(x))
 
 
 def extract_features(prepared, images, proposals, options: schema.FRCNN,

@@ -46,10 +46,21 @@ Phases (any failure ends the run with a nonzero exit code):
      (batch 1, P=2000, 20 classes): no ROI backward launches;
   9. one float32 training step at 256x384, P=64 on the card and on the
      CPU from the same params and batch: loss, head gradients and updated
-     head params agree.
+     head params agree; dropout's x / 0.7 and the mean over 3 eval scales
+     equal the CPU's quotients bit for bit;
+ 10. train_loop: train() from PNG TFRecords written here, at
+     configs/coco17_extend_match.pbtxt as shipped, through all eight
+     canvas buckets (1216x1824 ... 416x608, both orientations), launches
+     per step K1 1, K4 3, K2 1, K5 2, K6 1, per-bucket step and feed-wait
+     medians, peak memory; a second train() restores the final checkpoint
+     bit for bit and trains on. Also says whether Pillow imports.
+
+Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
+(features [2, 76, 114, 576], P=500).
 
 ``python3 chip_smoke.py --profile`` also reads one image's device kernel
-time and busy share with torch.profiler.
+time and busy share with torch.profiler, and the training step's busy
+share from a trace of train_loop's steps.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -83,7 +94,8 @@ K1_SHAPES = [("serve 1216x1824", (1, 76, 114, 576), 2000),
              ("serve 800x1216", (1, 50, 76, 576), 2000),
              ("serve 608x928", (1, 38, 58, 576), 2000),
              ("serve 416x608", (1, 26, 38, 576), 2000),
-             ("train coco17", (2, 64, 96, 576), 500)]
+             ("train coco17", (2, 64, 96, 576), 500),
+             ("train coco17 1216x1824", (2, 76, 114, 576), 500)]
 BOX_SETS = {"mix": None, "wide": 0, "narrow": 1}  # make_boxes' kinds
 POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
     ("Mixed_5a max 3/s2", "pool_max", 3, 2, (2000, 7, 7, 576)),
@@ -100,6 +112,8 @@ SCORE_TOL = (1e-3, 1e-5)
 TIMED_ROUNDS = 4  # passes over the 3 images: 12 samples per image time
 # Training shapes (configs/coco17_extend_match.pbtxt, the 1024x1536 canvas).
 TRAIN_FEATURE_SHAPE = (2, 64, 96, 576)
+# The Mixed_4e map of the largest coco17 training bucket (1216x1824).
+TRAIN_LARGEST_FEATURE_SHAPE = (2, 76, 114, 576)
 TRAIN_P = 500
 TRAIN_POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
     ("Mixed_5a max 3/s2", "pool_max", 3, 2, (1000, 7, 7, 576)),
@@ -118,6 +132,9 @@ ROI_GRAD_OPS_PER_CELL = 4 * 9 + 4 + 6 + 4
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 1e-4)}
 KERNELS = ("roi_crop_maxpool", "pool_fwd", "roi_crop_maxpool_grad",
            "maxpool_grad", "avgpool_grad")
+# train() steps of the train_loop phase: enough for its seeded stream to
+# reach all eight coco17 canvas buckets.
+TRAIN_LOOP_STEPS = 40
 
 
 def log(msg):
@@ -385,6 +402,7 @@ def phase_roi(torch):
                         (got.float() - exact.float()).abs().max())))
             err = compare(torch, got, roi_ops.crop_resize_maxpool(
                 feats, boxes, 14, 2, 2), "bfloat16")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
             nbytes = (feats.numel() * feats.element_size() + boxes.numel() * 4
                       + got.numel() * got.element_size())
             b_ms, b_by = bound_ms(nbytes, ROI_OPS_PER_OUTPUT * got.numel())
@@ -777,8 +795,55 @@ def phase_roi_grad(torch):
                                      iters=20)}
         line.update(roi_pool.grad_atomic_counts(feats, boxes, grad, 14, 2, 2))
         log(json.dumps(line))
+    # The largest coco17 training bucket: exact, within GRAD_TOL of the
+    # plain version, the same bits twice, timed beside its bound.
+    feats32 = torch.from_numpy(rng.standard_normal(
+        TRAIN_LARGEST_FEATURE_SHAPE, dtype=np.float32)).cuda()
+    boxes = torch.from_numpy(np.stack([
+        make_boxes(rng, TRAIN_P, num_pad=TRAIN_P // 20)
+        for _ in range(batch)])).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        feats, grad = feats32.to(dtype), grad32.to(dtype)
+        got = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2, 2)
+        exact = roi_ops.crop_resize_maxpool_grad(
+            feats, boxes, grad, 14, 2, 2, fixed_point=True)
+        again = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2, 2)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, exact) and torch.equal(got, again)):
+            raise AssertionError(
+                "roi_crop_maxpool_grad: %s at %s differs from its fixed-point "
+                "oracle or between launches" % (name,
+                                                TRAIN_LARGEST_FEATURE_SHAPE))
+        err = compare(torch, got, roi_ops.crop_resize_maxpool_grad(
+            feats, boxes, grad, 14, 2, 2), name, GRAD_TOL)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        line = {"kernel": "roi_crop_maxpool_grad",
+                "shape": "train coco17 1216x1824",
+                "features": list(TRAIN_LARGEST_FEATURE_SHAPE), "P": TRAIN_P,
+                "dtype": name, "max_abs_err_exact": 0.0, "max_abs_err": err,
+                "tol(rtol,atol)": GRAD_TOL[name],
+                "run_to_run_max_abs_diff": 0.0}
+        if dtype == torch.bfloat16:
+            nbytes = (2 * feats.numel() * feats.element_size()
+                      + boxes.numel() * 4 + grad.numel() * grad.element_size())
+            b_ms, b_by = bound_ms(nbytes, ROI_GRAD_OPS_PER_CELL * grad.numel())
+            line.update(
+                kernel_ms=cuda_ms(torch, lambda: roi_pool.
+                                  roi_crop_maxpool_grad(
+                                      feats, boxes, grad, 14, 2, 2),
+                                  iters=20),
+                plain_ms=cuda_ms(torch, lambda: roi_ops.
+                                 crop_resize_maxpool_grad(
+                                     feats, boxes, grad, 14, 2, 2),
+                                 iters=2, warmup=1),
+                bound_ms=b_ms, bound_by=b_by)
+            line["kernel_over_bound"] = line["kernel_ms"] / b_ms
+            line.update(roi_pool.grad_atomic_counts(feats, boxes, grad, 14,
+                                                    2, 2))
+        log(json.dumps(line))
     if roi_pool.grad_generic_launches != first_generic:
-        raise AssertionError("roi_crop_maxpool_grad: the coco17 shape took "
+        raise AssertionError("roi_crop_maxpool_grad: a coco17 shape took "
                              "the generic kernel")
     log("roi_crop_maxpool_grad: %d launches in this phase (checks and "
         "timing), all staged" % (roi_pool.grad_launches - first))
@@ -1103,6 +1168,371 @@ def phase_card_vs_cpu(torch):
         "(rtol 1e-3, atol 1e-3 of the leaf's max); updated head params "
         "max|err| %r (rtol 1e-4, atol 1e-5)" % (
             abs(loss_c - loss_h) / abs(loss_h), grad_err, param_err))
+    divisions_card_vs_cpu(torch)
+
+
+def divisions_card_vs_cpu(torch):
+    """The two divisions by a count or probability that is no power of two
+    give the CPU's IEEE quotient on the card, bit for bit: the dropout's
+    x / keep_prob at keep_prob 0.7, and MultiScalePredictor's mean over 3
+    scales (the model's scores fixed per scale, so only the mean runs)."""
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.eval import evaluator
+    from cap2det_tpu_torch.models import frcnn, registry
+
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(rng.uniform(0.5, 2.0, 1 << 20).astype(np.float32))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    got = frcnn.dropout(x.cuda(), 0.7, gen).cpu()
+    kept = got != 0
+    want = torch.where(kept, x / torch.tensor(0.7), torch.zeros_like(x))
+    dropout_diff = int((got != want).sum())
+
+    model_cfg = schema.load_pipeline(os.path.join(
+        "configs", "coco17_extend_match.pbtxt")).model
+    model_cfg.cap2det_model.eval_min_dimension = [96, 64, 48]
+    num_p, num_c = 500, 80
+    scales = [{"oicr_proposal_scores_at_%d" % i: rng.standard_normal(
+        (1, num_p, num_c + (i > 0))).astype(np.float32)
+        for i in range(1 + model_cfg.cap2det_model.oicr_iterations)}
+        for _ in range(3)]
+    example = {"image": smooth_image(rng, 50, 70),
+               "proposals": np.clip(make_boxes(rng, num_p, 0), 0.0, 1.0)}
+    means = {}
+    for device in ("cuda", "cpu"):
+        model = registry.build(model_cfg, compute_dtype=torch.float32,
+                               device=device)
+        calls = iter(scales)
+        model.predictions = lambda prepared, batch, _dev=device: {
+            k: torch.from_numpy(v).to(_dev) for k, v in next(calls).items()}
+        predictor = evaluator.MultiScalePredictor(
+            model, model.init_params(SEED), schema.Cap2DetReader.from_dict(
+                {"max_num_proposals": num_p}))
+        means[device] = predictor.predict(example)["proposal_scores"]
+    mean_diff = sum(int((means["cuda"][k] != v).sum())
+                    for k, v in means["cpu"].items())
+    log("card vs CPU divisions: dropout x / 0.7 over %d values, %d kept, %d "
+        "differ; mean of 3 scales over %d scores, %d differ" % (
+            x.numel(), int(kept.sum()), dropout_diff,
+            sum(v.size for v in means["cpu"].values()), mean_diff))
+    if dropout_diff or mean_diff:
+        raise AssertionError("a division on the card differs from the CPU's")
+
+
+def snapshot(torch, state):
+    """CPU copies of a training state's params, optimizer slots, count and
+    step (the live tensors change in place as training goes on)."""
+    from cap2det_tpu_torch.train import optimizers
+
+    return {
+        "params": {p: leaf.detach().cpu().clone() for p, leaf in
+                   optimizers.flatten_params(state["params"])},
+        "slots": {(p, k): v.detach().cpu().clone() for p, slots in
+                  state["opt_state"]["slots"].items()
+                  for k, v in slots.items()},
+        "count": state["opt_state"]["count"], "step": state["step"]}
+
+
+def busy_share(trace_path):
+    """(device busy ms, window ms) of a torch.profiler chrome trace: the
+    union of the card's kernel, copy and set intervals, and the span of
+    all events."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in device:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    return busy / 1e3, window / 1e3
+
+
+def write_train_records(directory, num_examples, image_hw, seed):
+    """Seeded PNG records at coco17's shape in both orientations: smooth
+    images, 500 proposals, captions naming coco classes (the extend-match
+    table's class names)."""
+    from cap2det_tpu_torch.data import synthetic
+    from cap2det_tpu_torch.text import vocab
+
+    classes, _ = vocab.load_synonym_table(
+        os.path.join("data", "coco_label_synonyms.txt"))
+    h, w = image_hw
+    for i, (name, hw) in enumerate((("landscape", (h, w)),
+                                    ("portrait", (w, h)))):
+        synthetic.write_synthetic_dataset(
+            os.path.join(directory, "train-%s.record" % name),
+            num_examples=num_examples, seed=seed + i, classes=classes,
+            image_hw=hw, num_proposals=TRAIN_P, smooth=True)
+    return os.path.join(directory, "train-*.record")
+
+
+PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
+            "maxpool_grad": 2, "avgpool_grad": 1}
+
+
+def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
+    """trainer.train() on the card with a hook that records, per step, a
+    CUDA event and the host clock at its end, the loop's wait on the
+    input pipeline, its pinning and queuing of the batches' copies, the
+    canvas and the kernel launches. Returns (state, records,
+    start event, host start, wall seconds)."""
+    records = []
+    previous = [launch_counts()]
+
+    def hook(step, state, logs):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        now = launch_counts()
+        records.append({
+            "step": step, "host": time.perf_counter(), "event": end,
+            "wait": logs["input/wait_sec"],
+            "place": logs["input/place_sec"],
+            "canvas": (int(logs["input/canvas_height"]),
+                       int(logs["input/canvas_width"])),
+            "launches": {k: now[k] - previous[0][k] for k in KERNELS}})
+        previous[0] = now
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t_start = time.perf_counter()
+    state = trainer.train(cfg, model_dir=model_dir, max_steps=steps,
+                          hooks=[hook], profile_steps=profile_steps)
+    torch.cuda.synchronize()
+    return state, records, start, t_start, time.perf_counter() - t_start
+
+
+def report_steps(tag, records, start, t_start, train_config):
+    """Logs, per canvas bucket, the step's time on the card's timeline
+    (event to event) and on the host clock (hook to hook), the loop's
+    wait on the input pipeline and its time placing batches. A bucket's first step, and the steps that wrote
+    metrics or a checkpoint, are reported apart. Returns the medians over
+    the other steps."""
+    def side(r):
+        return (r["step"] % train_config.save_checkpoints_steps == 0
+                or r["step"] % train_config.log_step_count_steps == 0)
+
+    per_bucket = {}
+    for prev, r in zip([None] + records[:-1], records):
+        r["event_ms"] = (prev["event"] if prev else start).elapsed_time(
+            r["event"])
+        r["host_s"] = r["host"] - (prev["host"] if prev else t_start)
+        b = per_bucket.setdefault(r["canvas"], {"first": None, "steps": []})
+        if b["first"] is None:
+            b["first"] = r
+        elif not side(r):
+            b["steps"].append(r)
+    for canvas in sorted(per_bucket):
+        b = per_bucket[canvas]
+        first = b["first"]
+        line = {"run": tag, "bucket": "%dx%d" % canvas,
+                "steps": 1 + len(b["steps"]),
+                "first_step": {"step": first["step"],
+                               "event_ms": first["event_ms"],
+                               "host_s": first["host_s"],
+                               "wait_s": first["wait"],
+                               "place_s": first["place"]}}
+        if b["steps"]:
+            line.update({
+                "median_event_ms": float(np.median(
+                    [r["event_ms"] for r in b["steps"]])),
+                "median_host_s": float(np.median(
+                    [r["host_s"] for r in b["steps"]])),
+                "median_wait_s": float(np.median(
+                    [r["wait"] for r in b["steps"]])),
+                "median_place_s": float(np.median(
+                    [r["place"] for r in b["steps"]])),
+                "samples_event_ms": [r["event_ms"] for r in b["steps"]]})
+        log("train_loop: " + json.dumps(line))
+    log("train_loop: %s: steps that wrote metrics or a checkpoint: %s" % (
+        tag, json.dumps([{"step": r["step"], "event_ms": r["event_ms"],
+                          "host_s": r["host_s"], "wait_s": r["wait"],
+                          "place_s": r["place"]}
+                         for r in records if side(r)])))
+    firsts = {id(b["first"]) for b in per_bucket.values()}
+    steady = [r for r in records if id(r) not in firsts and not side(r)]
+    medians = {"event_ms": float(np.median([r["event_ms"] for r in steady])),
+               "host_s": float(np.median([r["host_s"] for r in steady])),
+               "wait_s": float(np.median([r["wait"] for r in steady])),
+               "place_s": float(np.median([r["place"] for r in steady]))}
+    log("train_loop: %s: over %d steps (no bucket's first, none that wrote),"
+        " median event_ms %r, host_s %r, wait_s %r, place_s %r; wait share "
+        "of host time %r" % (tag, len(steady), medians["event_ms"],
+                             medians["host_s"], medians["wait_s"],
+                             medians["place_s"],
+                             sum(r["wait"] for r in steady)
+                             / sum(r["host_s"] for r in steady)))
+    return medians
+
+
+def phase_train_loop(torch, profile, steps=TRAIN_LOOP_STEPS,
+                     image_hw=(480, 640), examples_per_file=8):
+    """train() from TFRecords at configs/coco17_extend_match.pbtxt as
+    shipped (batch 2, P=500, scales 1.2/0.8/0.6/0.4, flip 0.5, Mixed_4e
+    trainable, Adagrad, dropout 0.5), its input pattern and model_dir in a
+    temporary directory, logging and saving every few steps: every canvas
+    bucket feeds a step, each step launches K1 1, K4 3, K2 1, K5 2, K6 1
+    (K1 and K2 staged), per-bucket step and feed-wait medians, peak
+    memory. The same steps again, fed from the same batches made
+    beforehand, say what the feed's thread adds to a step. Then a second
+    train() restores the final checkpoint bit for bit and trains on from
+    its step. With `profile`, steps of the first run are traced and the
+    device's busy share printed.
+
+    Returns the launches of the first run (counts set to 0 just before)."""
+    import glob
+    import importlib.util
+    import tempfile
+
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.data import pipeline as pipeline_lib
+    from cap2det_tpu_torch.kernels import roi_pool
+    from cap2det_tpu_torch.text import extractors
+    from cap2det_tpu_torch.train import checkpoint as ckpt_lib
+    from cap2det_tpu_torch.train import trainer
+
+    log("train_loop: Pillow (PIL) %s on this machine" % (
+        "imports" if importlib.util.find_spec("PIL") else "does not import"))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        pattern = write_train_records(tmp.name, examples_per_file, image_hw,
+                                      SEED + 9)
+        sizes = [os.path.getsize(f) for f in glob.glob(pattern)]
+        log("train_loop: wrote %d PNG records (%s, both orientations, P=%d) "
+            "in %.1f s, %d bytes" % (2 * examples_per_file, image_hw, TRAIN_P,
+                                     time.perf_counter() - t0, sum(sizes)))
+        cfg = schema.load_pipeline(os.path.join("configs",
+                                                "coco17_extend_match.pbtxt"))
+        reader = cfg.train_reader.cap2det_reader
+        reader.input_pattern = [pattern]
+        cfg.train_config.save_checkpoints_steps = 10
+        cfg.train_config.log_step_count_steps = 5
+        model_dir = os.path.join(tmp.name, "model")
+        buckets = set()
+        for scale in reader.batch_resize_scale_value:
+            short, long = pipeline_lib.compute_canvas(
+                reader.image_resizer.keep_aspect_ratio_resizer.min_dimension,
+                scale)
+            buckets |= {(short, long), (long, short)}
+
+        profile_steps = (steps - 4, steps - 1) if profile else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state, records, start, t_start, wall = run_train(
+            torch, trainer, cfg, model_dir, steps, profile_steps)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        bad = [r for r in records if r["launches"] != PER_STEP]
+        if bad:
+            raise AssertionError("train_loop: launches per step %s at steps "
+                                 "%s, expected %s" % (
+                                     bad[0]["launches"],
+                                     [r["step"] for r in bad], PER_STEP))
+        if (roi_pool.generic_launches or roi_pool.grad_generic_launches
+                or roi_pool.staged_launches != launches["roi_crop_maxpool"]
+                or roi_pool.grad_staged_launches
+                != launches["roi_crop_maxpool_grad"]):
+            raise AssertionError("train_loop: K1 or K2 took the generic "
+                                 "kernel")
+        seen = {r["canvas"] for r in records}
+        if seen != buckets or [r["step"] for r in records] != list(
+                range(1, steps + 1)):
+            raise AssertionError("train_loop: canvases %s of %s, steps %s" % (
+                sorted(seen), sorted(buckets), [r["step"] for r in records]))
+        log("train_loop: %d steps in %.2f s through all %d canvas buckets; "
+            "launches %s (per step %s, K1 and K2 staged); peak memory %d "
+            "bytes" % (steps, wall, len(buckets), json.dumps(launches),
+                       json.dumps(PER_STEP), peak))
+        fed = report_steps("feed", records, start, t_start, cfg.train_config)
+        if profile:
+            busy, window = busy_share(os.path.join(model_dir, "profile",
+                                                   "trace.json"))
+            log("train_loop: profile of steps %d-%d: device busy %.3f ms of "
+                "a %.3f ms window, busy share %.4f" % (
+                    profile_steps[0] + 1, profile_steps[1], busy, window,
+                    busy / window))
+
+        # The same run fed from the same batches, made beforehand: no
+        # worker process decodes or resizes while the steps run.
+        pipe = pipeline_lib.build_input_pipeline(
+            cfg.train_reader, seed=0, label_extractor=(
+                extractors.build_label_extractor(
+                    cfg.model.cap2det_model.label_extractor)))
+        it = iter(pipe)
+        try:
+            made = [next(it) for _ in range(steps + 2)]
+        finally:
+            it.close()
+        real = (pipeline_lib.build_input_pipeline,
+                pipeline_lib.in_worker_process)
+        pipeline_lib.build_input_pipeline = lambda *a, **k: made
+        pipeline_lib.in_worker_process = lambda pipe, device: pipe
+        try:
+            _, made_records, start, t_start, _ = run_train(
+                torch, trainer, cfg, os.path.join(tmp.name, "made"), steps)
+        finally:
+            (pipeline_lib.build_input_pipeline,
+             pipeline_lib.in_worker_process) = real
+        if [r["canvas"] for r in made_records] != [r["canvas"]
+                                                   for r in records]:
+            raise AssertionError("train_loop: the batches made beforehand "
+                                 "are not the feed's")
+        made = report_steps("made beforehand", made_records, start, t_start,
+                            cfg.train_config)
+        log("train_loop: median step on the card's timeline with the feed "
+            "%.3f ms, from batches made beforehand %.3f ms (one pair, in "
+            "that order)" % (fed["event_ms"], made["event_ms"]))
+
+        saved = snapshot(torch, state)
+        del state
+        losses = []
+        restored = {}
+        real_restore = ckpt_lib.CheckpointManager.restore
+
+        def spy(self, state_like=None, step=None):
+            out = real_restore(self, state_like, step)
+            if out is not None and state_like is not None:
+                restored.update(snapshot(torch, out))
+            return out
+
+        ckpt_lib.CheckpointManager.restore = spy
+        try:
+            trainer.train(cfg, model_dir=model_dir, max_steps=steps + 2,
+                          hooks=[lambda step, st, logs: losses.append(
+                              (step, float(logs["loss/total_loss"])))])
+        finally:
+            ckpt_lib.CheckpointManager.restore = real_restore
+        if restored.get("step") != steps or restored["count"] != steps:
+            raise AssertionError("train_loop: restored step %s, expected %d"
+                                 % (restored.get("step"), steps))
+        for part in ("params", "slots"):
+            if restored[part].keys() != saved[part].keys() or not all(
+                    torch.equal(v, saved[part][k])
+                    for k, v in restored[part].items()):
+                raise AssertionError("train_loop: restored %s differ from "
+                                     "the saved ones" % part)
+        if [s for s, _ in losses] != [steps + 1, steps + 2] or not np.all(
+                np.isfinite([v for _, v in losses])):
+            raise AssertionError("train_loop: resumed steps %s" % losses)
+        log("train_loop: checkpoint at step %d restored bit for bit (%d "
+            "params, %d optimizer slots); resumed steps %s; checkpoints %s"
+            % (steps, len(saved["params"]), len(saved["slots"]),
+               json.dumps(losses),
+               [s for s, _ in ckpt_lib.list_checkpoints(model_dir)]))
+    finally:
+        tmp.cleanup()
+    return launches
 
 
 def main(argv):
@@ -1147,13 +1577,15 @@ def main(argv):
               "avgpool_grad": 1})
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    launches = phase_train_loop(torch, profile)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
 
-    # Launches: the coco17 training run (12 steps), which runs all five.
-    launches = coco["launches"]
-    if min(launches.values()) < 1:
-        raise AssertionError("a kernel did not run in training: %s"
-                             % launches)
+    # Launches: the train() run of the train_loop phase, the main path,
+    # which runs all five (the coco17 step phase does too).
+    if min(launches.values()) < 1 or min(coco["launches"].values()) < 1:
+        raise AssertionError("a kernel did not run in training: %s, %s"
+                             % (launches, coco["launches"]))
     rows = [
         ("roi_crop_maxpool", "roi_pool.cu", "roi_pool.py:1213", k1),
         ("pool_fwd", "pool.cu", "pool_grad.py:350", k4),

@@ -14,8 +14,9 @@ import torch
 
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
+from cap2det_tpu_torch.eval import evaluator
 from cap2det_tpu_torch.kernels import build, pool_grad, roi_pool
-from cap2det_tpu_torch.models import registry
+from cap2det_tpu_torch.models import frcnn, registry
 from cap2det_tpu_torch.ops import roi as roi_ops
 from cap2det_tpu_torch.train import trainer
 import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
@@ -424,3 +425,55 @@ def test_train_step_launch_counts(cuda, tmp_path, unfreeze, want_k2,
     assert delta == (1, 3, want_k2, want_k5, 1)
     assert torch.isfinite(logs["loss/total_loss"])
     assert state["step"] == 1
+
+
+def test_dropout_divides_as_the_cpu(cuda):
+    """keep_prob 0.7 is no power of two: the card's quotient equals the
+    CPU's IEEE one, where a Python-scalar divisor was a reciprocal
+    multiply, one ulp off in about a tenth of the values."""
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.5, 2.0, 1 << 20).astype(np.float32))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    got = frcnn.dropout(x.to(cuda), 0.7, gen).cpu()
+    kept = got != 0
+    assert 0.69 < kept.float().mean().item() < 0.71
+    want = torch.where(kept, x / torch.tensor(0.7), torch.zeros_like(x))
+    assert torch.equal(got, want)
+
+
+def test_score_mean_over_three_scales_divides_as_the_cpu(cuda, tmp_path):
+    """MultiScalePredictor averages three scales' scores: the same scores
+    give the same mean on the card as on the CPU (3 is no power of two).
+    The model's scores are fixed per scale, so only the mean differs."""
+    labels = tmp_path / "labels.txt"
+    labels.write_text("person\ndog\ncar\n")
+    cfg = schema.loads_pipeline((_TRAIN_PIPELINE % (labels, "")).replace(
+        "oicr_iterations: 2", "oicr_iterations: 2 eval_min_dimension: 96 "
+        "eval_min_dimension: 64 eval_min_dimension: 48 "
+        "midn_post_processor { max_size_per_class: 5 max_total_size: 10 } "
+        "oicr_post_processor { max_size_per_class: 5 max_total_size: 10 }"))
+    rng = np.random.default_rng(10)
+    num_p = 200
+    scales = [{"oicr_proposal_scores_at_%d" % i: rng.standard_normal(
+        (1, num_p, 3 + (i > 0))).astype(np.float32) for i in range(3)}
+        for _ in range(3)]
+    example = {"image": rng.integers(0, 256, (50, 70, 3)).astype(np.uint8),
+               "proposals": np.sort(rng.uniform(0, 1, (num_p, 2, 2)),
+                                    axis=1).reshape(num_p, 4)[:, [0, 2, 1, 3]]
+               .astype(np.float32)}
+    means = {}
+    for device in ("cuda", "cpu"):
+        model = registry.build(cfg.model, compute_dtype=torch.float32,
+                               device=device)
+        calls = iter(scales)
+        model.predictions = lambda prepared, batch, _dev=device: {
+            k: torch.from_numpy(v).to(_dev) for k, v in next(calls).items()}
+        predictor = evaluator.MultiScalePredictor(
+            model, model.init_params(0), schema.Cap2DetReader.from_dict(
+                {"max_num_proposals": num_p}))
+        means[device] = predictor.predict(example)["proposal_scores"]
+    assert set(means["cuda"]) == set(scales[0])
+    for key, want in means["cpu"].items():
+        total = scales[0][key] + scales[1][key] + scales[2][key]
+        np.testing.assert_array_equal(want, total / np.float32(3))
+        np.testing.assert_array_equal(means["cuda"][key], want)
