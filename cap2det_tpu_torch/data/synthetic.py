@@ -116,3 +116,79 @@ def write_label_file(path, classes=VOC_CLASSES):
     with open(path, "w") as fid:
         fid.write("\n".join(classes))
     return path
+
+
+def make_localizable_example(rng, image_id, classes, image_hw=(96, 128),
+                             num_distractors=10):
+    """One example a detector can actually learn to localize.
+
+    Unlike `make_example` (random boxes over noise), the image carries a
+    class-colored rectangle at the ground-truth location, and the
+    proposal set contains the ground-truth box plus random distractors —
+    the structure WSOD needs (selective-search proposals cover true
+    objects in the reference data). Used by the end-to-end overfit test.
+    The draws are the JAX package's, in its order; the image is stored as
+    PNG.
+    """
+    h, w = image_hw
+    cls = int(rng.integers(len(classes)))
+
+    # Distinct, saturated color per class; mid-gray background.
+    palette = np.array(
+        [[220, 40, 40], [40, 220, 40], [40, 40, 220], [220, 220, 40],
+         [220, 40, 220], [40, 220, 220]],
+        np.uint8,
+    )
+    image = np.full((h, w, 3), 128, np.uint8)
+    y0 = rng.uniform(0.05, 0.55)
+    x0 = rng.uniform(0.05, 0.55)
+    y1 = y0 + rng.uniform(0.25, 0.4)
+    x1 = x0 + rng.uniform(0.25, 0.4)
+    gt = np.clip([y0, x0, y1, x1], 0, 1).astype(np.float32)
+    py0, px0, py1, px1 = (gt * [h, w, h, w]).astype(int)
+    image[py0:py1, px0:px1] = palette[cls % len(palette)]
+
+    # Proposals: the gt box first, then off-object distractors.
+    props = [gt]
+    while len(props) < 1 + num_distractors:
+        dy0 = rng.uniform(0, 0.7)
+        dx0 = rng.uniform(0, 0.7)
+        box = np.clip(
+            [dy0, dx0, dy0 + rng.uniform(0.15, 0.3),
+             dx0 + rng.uniform(0.15, 0.3)], 0, 1
+        ).astype(np.float32)
+        # Keep distractors clear of the object (IoU-free negatives).
+        iy = max(0.0, min(box[2], gt[2]) - max(box[0], gt[0]))
+        ix = max(0.0, min(box[3], gt[3]) - max(box[1], gt[1]))
+        if iy * ix > 0.0:
+            continue
+        props.append(box)
+    proposals = np.stack(props)
+
+    cap = list(rng.choice(_FILLER, size=2)) + [classes[cls]]
+    return record_builder.build_example(
+        image_id,
+        image_encoded=png.encode_png(image),
+        captions=[cap],
+        object_boxes=gt[None, :],
+        object_texts=[classes[cls]],
+        object_labels=[cls + 1],
+        proposal_boxes=proposals,
+    )
+
+
+def write_localizable_dataset(path, num_examples=16, seed=0,
+                              classes=("redthing", "greenthing"),
+                              image_hw=(96, 128), num_distractors=10):
+    rng = np.random.default_rng(seed)
+    classes = list(classes)
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(num_examples):
+            w.write(make_localizable_example(
+                rng,
+                "localizable-%05d" % i,
+                classes,
+                image_hw=image_hw,
+                num_distractors=num_distractors,
+            ))
+    return path

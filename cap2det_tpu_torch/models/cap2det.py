@@ -20,6 +20,7 @@ from cap2det_tpu_torch.models import frcnn, wsod
 from cap2det_tpu_torch.models.registry import register_model_class
 from cap2det_tpu_torch.ops import losses as loss_ops
 from cap2det_tpu_torch.ops import masked, nms
+from cap2det_tpu_torch.ops import softmax as softmax_ops
 from cap2det_tpu_torch.text import extractors as extractors_lib
 
 FEATURE_DIM = 1024
@@ -235,7 +236,8 @@ class Cap2DetModel:
                 post_fn = self._midn_post
             else:
                 post_fn = self._oicr_post
-                scores = torch.softmax(scores, dim=-1)[:, :, 1:]
+                # The same bits on the card and the CPU (ops/softmax.py).
+                scores = softmax_ops.softmax(scores)[:, :, 1:]
             if valid is not None:
                 scores = scores * valid
             num, boxes, det_scores, det_classes = post_fn(proposals, scores)

@@ -231,9 +231,12 @@ def build_optimizer(train_config: schema.TrainConfig, params,
 
 
 def ema_init(params):
-    """A detached copy of every leaf (never aliasing the params)."""
-    return unflatten([(path, leaf.detach().clone())
-                      for path, leaf in flatten_params(params)])
+    """A detached copy of every leaf (never aliasing the params), nested as
+    the params are, leafless blocks (a pool branch's {}) included, as
+    ``jax.tree.map`` keeps them: the average is a params tree the model
+    can run."""
+    return {k: ema_init(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in params.items()}
 
 
 @torch.no_grad()

@@ -53,7 +53,20 @@ Phases (any failure ends the run with a nonzero exit code):
      canvas buckets (1216x1824 ... 416x608, both orientations), launches
      per step K1 1, K4 3, K2 1, K5 2, K6 1, per-bucket step and feed-wait
      medians, peak memory; a second train() restores the final checkpoint
-     bit for bit and trains on. Also says whether Pillow imports.
+     bit for bit and trains on. Also says whether Pillow imports;
+ 11. eval_daemon: continuous_evaluation(evaluate_all=True) at
+     configs/voc07_inc2.pbtxt width (4 scales, P=2000, 20 classes, 3 OICR
+     iterations, bf16) over 8 PNG records and two checkpoints of seeded
+     TrainStates: one eval_metrics.jsonl row per checkpoint, oldest first,
+     the CSV and HTML reports, promotion of the better final-iteration
+     mAP, launches K1 64 and K4 192 (K1 staged) and no backward kernel,
+     the second checkpoint's detections not the first's; seconds per
+     checkpoint and per image, the NMS share, peak memory; one image's
+     postprocess on the CPU equals the card's bit for bit; then
+     export_main and evaluate_main --run_once in a subprocess;
+ 12. overfit_map: tests/test_e2e_map.py's run on the card
+     (cap2det_tpu_torch/tools/overfit_map.py): passthrough warm start, 300
+     train() steps, the daemon's final mAP >= 0.5 at step 300.
 
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 (features [2, 76, 114, 576], P=500).
@@ -1535,6 +1548,299 @@ def phase_train_loop(torch, profile, steps=TRAIN_LOOP_STEPS,
     return launches
 
 
+EVAL_RECORDS = 8
+EVAL_SIZES = [(375, 500), (500, 333), (400, 400)]
+EVAL_STEPS = (2000, 4000)  # voc07_inc2's save_checkpoints_steps cadence
+VOC_TEST_PATTERN = '"output/records/VOC2007_test.record*"'
+
+
+def write_eval_inputs(directory):
+    """Seeded PNG records for the voc07_inc2 eval reader (375x500, 500x333
+    and 400x400 images, 2000 proposals, ground-truth texts that are VOC
+    class names) and a copy of configs/voc07_inc2.pbtxt reading them.
+    Returns the config's path."""
+    from cap2det_tpu_torch.data import synthetic, tfrecord
+
+    record = os.path.join(directory, "eval.record")
+    rng = np.random.default_rng(SEED + 11)
+    with tfrecord.TFRecordWriter(record) as w:
+        for i in range(EVAL_RECORDS):
+            w.write(synthetic.make_example(
+                rng, "eval-%05d" % i, image_hw=EVAL_SIZES[i % 3],
+                num_proposals=NUM_PROPOSALS, smooth=True))
+    with open(os.path.join("configs", "voc07_inc2.pbtxt")) as f:
+        text = f.read()
+    if VOC_TEST_PATTERN not in text:
+        raise AssertionError("voc07_inc2.pbtxt reads no %s" % VOC_TEST_PATTERN)
+    proto = os.path.join(directory, "voc07_inc2_eval.pbtxt")
+    with open(proto, "w") as f:
+        f.write(text.replace(VOC_TEST_PATTERN, '"%s"' % record))
+    return proto
+
+
+def phase_eval_daemon(torch):
+    """The eval daemon at configs/voc07_inc2.pbtxt width (4 scales, P=2000,
+    20 classes, 3 OICR iterations, bf16) over two checkpoints written by
+    CheckpointManager.save of two seeded TrainStates: one row per
+    checkpoint, reports, promotion, launches K1 4x8x2 and K4 12x8x2 with
+    no backward kernel, each checkpoint's detections its own; seconds per
+    checkpoint and per image, the NMS share and peak memory per
+    checkpoint; one image's postprocess card vs CPU bit for bit; then the
+    export and evaluate CLIs in a subprocess on the same model_dir.
+
+    Returns the daemon's launches (counts set to 0 just before it)."""
+    import tempfile
+
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.eval import evaluator
+    from cap2det_tpu_torch.kernels import roi_pool
+    from cap2det_tpu_torch.models import cap2det, registry
+    from cap2det_tpu_torch.train import checkpoint as ckpt_lib
+    from cap2det_tpu_torch.train import trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    try:
+        proto = write_eval_inputs(tmp.name)
+        cfg = schema.load_pipeline(proto)
+        opts = cfg.model.cap2det_model
+        num_scales = len(opts.eval_min_dimension)
+        iterations = 1 + opts.oicr_iterations
+        model_dir = os.path.join(tmp.name, "model")
+        train_model = registry.build(cfg.model, is_training=True)
+        manager = ckpt_lib.CheckpointManager(model_dir)
+        for seed, step in enumerate(EVAL_STEPS):
+            state, _, _, _ = trainer.TrainState.create(
+                train_model, cfg.train_config, seed)
+            manager.save(step, state)
+        del state, train_model
+        torch.cuda.empty_cache()
+        log("eval_daemon: voc07_inc2, %d scales %s, P=%d, %d OICR "
+            "iterations, bf16; %d PNG records %s; checkpoints %s" % (
+                num_scales, list(opts.eval_min_dimension),
+                cfg.eval_reader.cap2det_reader.max_num_proposals,
+                opts.oicr_iterations, EVAL_RECORDS, EVAL_SIZES,
+                [s for s, _ in ckpt_lib.list_checkpoints(model_dir)]))
+
+        # Per checkpoint (one run_evaluation each): peak memory; per image:
+        # the host-clock time of predict and of its postprocess (NMS),
+        # each between synchronisations, and the detections.
+        runs = []
+        real_run = evaluator.run_evaluation
+        real_predict = evaluator.MultiScalePredictor.predict
+        real_post = cap2det.Cap2DetModel.postprocess
+
+        def run_evaluation(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs.append({"images": []})
+            out = real_run(*args, **kwargs)
+            torch.cuda.synchronize()
+            runs[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return out
+
+        def predict(self, example):
+            runs[-1]["images"].append({"post_s": 0.0})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_predict(self, example)
+            torch.cuda.synchronize()
+            runs[-1]["images"][-1].update(s=time.perf_counter() - t0, out=out)
+            return out
+
+        def postprocess(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_post(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            runs[-1]["images"][-1]["post_s"] += time.perf_counter() - t0
+            return out
+
+        evaluator.run_evaluation = run_evaluation
+        evaluator.MultiScalePredictor.predict = predict
+        cap2det.Cap2DetModel.postprocess = postprocess
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            best = evaluator.continuous_evaluation(
+                cfg, model_dir=model_dir, evaluate_all=True,
+                max_idle_polls=0, poll_interval_secs=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            evaluator.run_evaluation = real_run
+            evaluator.MultiScalePredictor.predict = real_predict
+            cap2det.Cap2DetModel.postprocess = real_post
+
+        want = dict.fromkeys(KERNELS, 0)
+        per_run = EVAL_RECORDS * len(EVAL_STEPS)
+        want.update(roi_crop_maxpool=num_scales * per_run,
+                    pool_fwd=3 * num_scales * per_run)
+        if launches != want:
+            raise AssertionError("eval_daemon: launches %s, expected %s"
+                                 % (launches, want))
+        if roi_pool.staged_launches != launches["roi_crop_maxpool"]:
+            raise AssertionError("eval_daemon: K1 took the generic kernel "
+                                 "(%d of %d launches staged)" % (
+                                     roi_pool.staged_launches,
+                                     launches["roi_crop_maxpool"]))
+        with open(os.path.join(model_dir, "eval_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows] != list(EVAL_STEPS) or len(runs) != 2:
+            raise AssertionError("eval_daemon: rows for steps %s"
+                                 % [r["step"] for r in rows])
+        for step in EVAL_STEPS:
+            for ext in ("csv", "html"):
+                path = os.path.join(model_dir, "eval_report_%d.%s"
+                                    % (step, ext))
+                if not os.path.getsize(path):
+                    raise AssertionError("eval_daemon: %s is empty" % path)
+        key = "iter%d/PascalBoxes_Precision/mAP@0.5IOU" % opts.oicr_iterations
+        maps = [r[key] for r in rows]
+        winner = EVAL_STEPS[1] if maps[1] > maps[0] else EVAL_STEPS[0]
+        with open(os.path.join(model_dir, "saved_ckpts",
+                               "saved_info.txt")) as f:
+            saved_step = int(f.read().split("\t")[0])
+        if saved_step != winner or best[0] not in EVAL_STEPS:
+            raise AssertionError("eval_daemon: saved_info names step %d, "
+                                 "final-iteration mAPs %s" % (saved_step,
+                                                              maps))
+        for a, b in zip(runs[0]["images"], runs[1]["images"]):
+            for it in range(iterations):
+                out = a["out"]
+                n = int(out["num_detections_at_%d" % it])
+                cls = out["detection_classes_at_%d" % it]
+                if n < 1 or not np.all((cls[:n] >= 1) & (cls[:n] <= 20)):
+                    raise AssertionError("eval_daemon: bad detections")
+            if all(np.array_equal(a["out"][k], b["out"][k])
+                   for k in a["out"] if k.startswith("detection_")):
+                raise AssertionError("eval_daemon: checkpoint %d detects as "
+                                     "checkpoint %d on %s" % (
+                                         EVAL_STEPS[1], EVAL_STEPS[0],
+                                         a["out"]["image_id"]))
+        for r in rows:
+            if not r["num_examples"] == EVAL_RECORDS or np.isnan(r[key]):
+                raise AssertionError("eval_daemon: row %s" % r)
+        for step, row, run in zip(EVAL_STEPS, rows, runs):
+            image_s = [i["s"] for i in run["images"]]
+            post_s = [i["post_s"] for i in run["images"]]
+            log("eval_daemon: " + json.dumps({
+                "step": step,
+                "seconds_per_checkpoint": row["eval/seconds_per_checkpoint"],
+                "median_seconds_per_image": float(np.median(image_s)),
+                "median_postprocess_s": float(np.median(post_s)),
+                "postprocess_share": sum(post_s) / sum(image_s),
+                "peak_memory_bytes": run["peak_bytes"],
+                "mAP_per_iteration": [
+                    row["iter%d/PascalBoxes_Precision/mAP@0.5IOU" % i]
+                    for i in range(iterations)],
+                "samples_s": image_s}))
+        log("eval_daemon: %d checkpoints in %.2f s; launches %s (K1 staged); "
+            "promoted step %d; best %s" % (len(rows), wall,
+                                           json.dumps(launches), saved_step,
+                                           json.dumps(best)))
+
+        # The CLIs, each in its own process on the card.
+        export_json = os.path.join(tmp.name, "detections.json")
+        for argv in (["cap2det_tpu_torch.cli.export_main",
+                      "--output_json", export_json],
+                     ["cap2det_tpu_torch.cli.evaluate_main", "--run_once"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", argv[0], "--pipeline_proto", proto,
+                 "--model_dir", model_dir] + argv[1:],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError("eval_daemon: %s exited %d:\n%s" % (
+                    argv[0], proc.returncode, proc.stderr[-4000:]))
+            log("eval_daemon: %s ran in %.1f s" % (
+                argv[0], time.perf_counter() - t0))
+        with open(export_json) as f:
+            exported = json.load(f)
+        if len(exported) != EVAL_RECORDS or any(
+                set(v) != {"detection_boxes", "detection_scores",
+                           "detection_classes"} for v in exported.values()):
+            raise AssertionError("eval_daemon: export wrote %s" % (
+                {k: sorted(v) for k, v in exported.items()}))
+        with open(os.path.join(model_dir, "eval_metrics.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f]
+        if steps != list(EVAL_STEPS) + [EVAL_STEPS[-1]]:
+            raise AssertionError("eval_daemon: after --run_once, rows for "
+                                 "steps %s" % steps)
+        log("eval_daemon: export_main wrote %d images' detections; "
+            "evaluate_main --run_once evaluated step %d" % (
+                len(exported), steps[-1]))
+        # One image: the card's averaged scores, postprocessed on the CPU,
+        # give the card's detections bit for bit.
+        out = runs[0]["images"][0]["out"]
+        cpu_model = registry.build(cfg.model, device="cpu")
+        host = cpu_model.postprocess(
+            {k: torch.from_numpy(v) for k, v in out["proposal_scores"].items()},
+            torch.from_numpy(out["proposals"])[None],
+            torch.tensor([out["num_proposals"]], dtype=torch.int32))
+        differ = {}
+        for k, v in host.items():
+            diff = np.abs(v[0].numpy().astype(np.float64)
+                          - out[k].astype(np.float64))
+            if (diff > 0).any():
+                differ[k] = {"values": int((diff > 0).sum()),
+                             "of": diff.size, "max_abs": float(diff.max())}
+        if differ:
+            raise AssertionError("eval_daemon: the postprocess on the CPU "
+                                 "differs from the card's: %s"
+                                 % json.dumps(differ))
+        log("eval_daemon: postprocess of %s on the CPU equals the card's bit "
+            "for bit (%s)" % (out["image_id"], json.dumps(
+                {k: int(out[k]) for k in out if k.startswith("num_det")})))
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def phase_overfit_map(torch):
+    """tests/test_e2e_map.py's overfit run on the card
+    (cap2det_tpu_torch/tools/overfit_map.py): passthrough warm start,
+    train() for 300 steps at batch 8, then the daemon's mAP >= 0.5 at
+    step 300. Prints the launches of training and of evaluation (both
+    backbone scopes train with multiplier 0)."""
+    import tempfile
+
+    from cap2det_tpu_torch.kernels import roi_pool
+    from cap2det_tpu_torch.tools import overfit_map
+
+    trained = {}
+
+    def hook(step, state, logs):
+        if step == overfit_map.STEPS:
+            trained.update(launch_counts())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overfit_") as tmp:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = overfit_map.run(tmp, device="cuda", hooks=[hook])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    overfit_map.check(result)
+    evaluated = {k: launches[k] - trained[k] for k in KERNELS}
+    log("overfit_map: " + json.dumps({
+        "steps": len(result["losses"]), "first_loss": result["losses"][0],
+        "last_loss": result["losses"][-1], "best": result["best"],
+        "mAP_per_iteration": result["map_per_iter"],
+        "train_s": result["train_s"], "eval_s": result["eval_s"],
+        "wall_s": wall, "train_launches": trained,
+        "eval_launches": evaluated,
+        "K1_staged": roi_pool.staged_launches,
+        "K1_generic": roi_pool.generic_launches}))
+    log("overfit_map: K2 %s in training" % (
+        "launched %d times" % trained["roi_crop_maxpool_grad"]
+        if trained["roi_crop_maxpool_grad"] else "did not launch"))
+    if min(evaluated["roi_crop_maxpool"], evaluated["pool_fwd"]) < 1:
+        raise AssertionError("overfit_map: the daemon launched %s"
+                             % evaluated)
+
+
 def main(argv):
     import torch
 
@@ -1579,7 +1885,13 @@ def main(argv):
     phase_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     launches = phase_train_loop(torch, profile)
+    torch.cuda.empty_cache()
+    eval_launches = phase_eval_daemon(torch)
+    torch.cuda.empty_cache()
+    phase_overfit_map(torch)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
+    log("chip_smoke: the eval daemon's launches (two checkpoints) %s"
+        % json.dumps(eval_launches))
 
     # Launches: the train() run of the train_loop phase, the main path,
     # which runs all five (the coco17 step phase does too).

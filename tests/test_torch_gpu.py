@@ -477,3 +477,119 @@ def test_score_mean_over_three_scales_divides_as_the_cpu(cuda, tmp_path):
         total = scales[0][key] + scales[1][key] + scales[2][key]
         np.testing.assert_array_equal(want, total / np.float32(3))
         np.testing.assert_array_equal(means["cuda"][key], want)
+
+
+_EVAL_PIPELINE = """
+eval_reader {
+  cap2det_reader {
+    input_pattern: "%(record)s"
+    is_training: false
+    batch_size: 1
+    max_num_proposals: 40
+  }
+}
+model {
+  [Cap2DetModel.ext] {
+    frcnn_options {
+      feature_extractor { type: 'faster_rcnn_inception_v2' }
+      initial_crop_size: 14 maxpool_kernel_size: 2 maxpool_stride: 2
+      dropout_keep_prob: 1.0 dropout_on_feature_map: false
+    }
+    fc_hyperparams {
+      initializer { truncated_normal_initializer { stddev: 0.01 } }
+    }
+    oicr_iterations: 2
+    midn_post_processor {
+      score_thresh: 0.00001 iou_thresh: 0.4
+      max_size_per_class: 10 max_total_size: 20
+    }
+    oicr_post_processor {
+      score_thresh: 0.00001 iou_thresh: 0.3
+      max_size_per_class: 10 max_total_size: 20
+    }
+    eval_min_dimension: 96
+    eval_min_dimension: 64
+    label_extractor { groundtruth_extractor { label_file: '%(labels)s' } }
+  }
+}
+"""
+
+
+def _eval_setup(tmp_path, num_examples=3):
+    from cap2det_tpu_torch.data import synthetic
+
+    classes = ["person", "dog", "car"]
+    record = synthetic.write_synthetic_dataset(
+        str(tmp_path / "eval.record"), num_examples=num_examples, seed=4,
+        classes=classes, image_hw=(90, 120), num_proposals=40)
+    labels = synthetic.write_label_file(str(tmp_path / "labels.txt"),
+                                        classes)
+    return schema.loads_pipeline(_EVAL_PIPELINE % {"record": record,
+                                                   "labels": labels})
+
+
+def test_update_params_prepares_again_on_the_card(cuda, tmp_path):
+    cfg = _eval_setup(tmp_path, num_examples=1)
+    reader = cfg.eval_reader.cap2det_reader
+    model = registry.build(cfg.model, compute_dtype=torch.float32)
+    example = next(pipeline.InputPipeline(reader, prefetch=0)
+                   .example_stream())
+    first, second = model.init_params(0), model.init_params(1)
+    predictor = evaluator.MultiScalePredictor(model, None, reader)
+    predictor.update_params(first)
+    before = predictor.predict(example)["proposal_scores"]
+    predictor.update_params(second)
+    got = predictor.predict(example)["proposal_scores"]
+    want = evaluator.MultiScalePredictor(model, second, reader).predict(
+        example)["proposal_scores"]
+    for key, w in want.items():
+        # The same float32 forward twice on the card.
+        np.testing.assert_allclose(got[key], w, rtol=1e-5, atol=1e-7)
+        assert np.abs(got[key] - before[key]).max() > 1e-4 * np.abs(w).max()
+
+
+def test_run_evaluation_launch_counts(cuda, tmp_path):
+    """Per image: K1 once and K4 three times per scale; no backward
+    kernel."""
+    cfg = _eval_setup(tmp_path)
+    model = registry.build(cfg.model)
+    counts = (roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
+              pool_grad.maxpool_grad_launches,
+              pool_grad.avgpool_grad_launches)
+    metrics, maps = evaluator.run_evaluation(cfg, model.init_params(0),
+                                             model=model)
+    torch.cuda.synchronize()
+    delta = tuple(b - a for a, b in zip(counts, (
+        roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
+        pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches)))
+    assert delta == (2 * 3, 3 * 2 * 3, 0, 0, 0)
+    assert metrics["num_examples"] == 3 and len(maps) == 3
+
+
+def test_postprocess_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The card's averaged scores, postprocessed on the CPU, give the
+    card's detections bit for bit."""
+    cfg = _eval_setup(tmp_path, num_examples=1)
+    reader = cfg.eval_reader.cap2det_reader
+    model = registry.build(cfg.model)
+    example = next(pipeline.InputPipeline(reader, prefetch=0)
+                   .example_stream())
+    out = evaluator.MultiScalePredictor(model, model.init_params(0),
+                                        reader).predict(example)
+    cpu_model = registry.build(cfg.model, device="cpu")
+    want = cpu_model.postprocess(
+        {k: torch.from_numpy(v) for k, v in out["proposal_scores"].items()},
+        torch.from_numpy(out["proposals"])[None],
+        torch.tensor([out["num_proposals"]]))
+    for key, w in want.items():
+        np.testing.assert_array_equal(out[key], w[0].numpy(), err_msg=key)
+
+
+def test_softmax_on_the_card_equals_the_cpu(cuda):
+    """ops/softmax.py gives the CPU's bits on the card, where
+    torch.softmax differs in about a third of the values."""
+    from cap2det_tpu_torch.ops import softmax
+
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        0, 3, (50, 2000, 21)).astype(np.float32))
+    assert torch.equal(softmax.softmax(x.to(cuda)).cpu(), softmax.softmax(x))

@@ -115,3 +115,33 @@ def test_post_processor_factory():
         max_total_size=5)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dim", [1, -1])
+def test_softmax_is_the_rounded_float64_softmax(dim):
+    """ops/softmax.py: the float64 softmax rounded to float32 (on these
+    seeded logits, bit for bit), within float32 rounding of JAX's."""
+    import jax
+
+    from cap2det_tpu_torch.ops import softmax
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 3, (2, 300, 21)).astype(np.float32)
+    x[0, 0, :3] = [80.0, -80.0, 0.0]  # exps far apart: terms that vanish
+    got = softmax.softmax(_t(x), dim=dim)
+    assert got.dtype == torch.float32
+    want = torch.softmax(_t(x).double(), dim=dim).float()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax.nn.softmax(x, axis=dim)),
+                               rtol=2e-6, atol=1e-30)
+
+
+def test_exp_of_basic_operations():
+    from cap2det_tpu_torch.ops import softmax
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-110, 0, 100000))
+    x[:3] = torch.tensor([0.0, -110.0, -0.5 * np.log(2)], dtype=torch.float64)
+    got = softmax.exp_nonpositive(x)
+    assert got[0] == 1.0
+    np.testing.assert_allclose(got.numpy(), np.exp(x.numpy()), rtol=1e-15)
