@@ -9,6 +9,9 @@ As in the JAX package (reference readers/cap2det_reader.py:19-269):
     ``max_num_proposals``, box renormalization to the canvas;
   * caption token buffers sliced on the host, and labels extracted there
     (``pseudo_labels``);
+  * text batches for the text model (``decode_image: false``): captions
+    and labels only, with the concatenated captions' token ids
+    (``concat_caption_token_ids``) when a vocabulary is given;
   * the same three ``random.Random`` streams (epoch order, shuffle buffer,
     batch decisions) drawn in the same order, so both packages give the
     same batches from the same records and seed.
@@ -20,9 +23,8 @@ emits raw uint8 [B, H, W, 3] canvases: the JAX feed's space-to-depth
 packing is a TPU layout that the port leaves out. PNG decodes without
 Pillow (``data/png.py``); every other format needs Pillow.
 
-Not ported yet, and refused: text batches (``decode_image: false``, a
-vocabulary; ROADMAP.md queue 1 item 4) and photometric augmentation
-(queue 1 item 6).
+Not ported yet, and refused: photometric augmentation (ROADMAP.md queue
+1 item 6).
 """
 
 from __future__ import annotations
@@ -311,11 +313,12 @@ class InputPipeline:
     Args:
       options: schema.Cap2DetReader.
       label_extractor: optional extractor; adds `pseudo_labels` to batches.
-      vocab: a text vocabulary (caption token ids); not ported, refused.
+      vocab: optional text Vocabulary; adds `concat_caption_token_ids`.
       seed: python RNG seed for shuffling/flip/scale decisions.
       aspect_cap / canvas_multiple: canvas bucket geometry.
       bucket_by_orientation: separate landscape/portrait batches.
       prefetch: batches a background thread keeps ready (0: none).
+      max_caption_tokens: length of the concatenated token-id field.
     """
 
     def __init__(
@@ -328,16 +331,14 @@ class InputPipeline:
         canvas_multiple=32,
         bucket_by_orientation=True,
         prefetch=2,
+        max_caption_tokens=64,
     ):
         if not isinstance(options, schema.Cap2DetReader):
             raise ValueError("options must be a Cap2DetReader config")
-        if vocab is not None or not options.decode_image:
-            raise NotImplementedError(
-                "text batches (decode_image: false, caption token ids) need "
-                "the text model, which the port does not have yet "
-                "(ROADMAP.md queue 1 item 4)")
         self.options = options
         self.label_extractor = label_extractor
+        self.vocab = vocab
+        self.max_caption_tokens = max_caption_tokens
         self.seed = seed
         self.aspect_cap = aspect_cap
         self.canvas_multiple = canvas_multiple
@@ -416,7 +417,7 @@ class InputPipeline:
             yielded = 0
             for path in ordered:
                 for record in tfrecord.read_records(path):
-                    example = parse_example(record)
+                    example = parse_example(record, self.options.decode_image)
                     if self._shard is not None:
                         numer, denom = self._shard
                         if _shard_hash(example["image_id"], denom) != numer:
@@ -451,6 +452,16 @@ class InputPipeline:
 
     # -- batching --------------------------------------------------------------
 
+    def _encode_captions(self, examples):
+        """[B, max_caption_tokens] int32 token ids (pad = OOV id)."""
+        out = np.full((len(examples), self.max_caption_tokens),
+                      self.vocab.oov_id, dtype=np.int32)
+        for i, ex in enumerate(examples):
+            toks = ex["concat_tokens"][: self.max_caption_tokens]
+            for j, t in enumerate(toks):
+                out[i, j] = self.vocab.lookup(t)
+        return out
+
     def _caption_matrix(self, examples):
         """Padded per-caption string fields (mirrors parse_texts output)."""
         num = max((len(ex["captions"]) for ex in examples), default=0)
@@ -478,6 +489,9 @@ class InputPipeline:
         batch[InputFields.num_captions] = counts
         batch[InputFields.caption_strings] = strings
         batch[InputFields.caption_lengths] = lengths
+        if self.vocab is not None:
+            batch[InputFields.concat_caption_token_ids] = (
+                self._encode_captions(examples))
         if self.label_extractor is not None:
             batch[InputFields.pseudo_labels] = labels_for_examples(
                 self.label_extractor, examples
@@ -555,6 +569,17 @@ class InputPipeline:
         opt = self.options
         rng = random.Random(self.seed + 2)
         batch_size = opt.batch_size
+
+        if not opt.decode_image:
+            pending = []
+            for ex in self._shuffled_stream():
+                pending.append(ex)
+                if len(pending) == batch_size:
+                    yield self._assemble_text_batch(pending)
+                    pending = []
+            # Trailing partial batch dropped: reference padded_batch uses
+            # drop_remainder=True (cap2det_reader.py:252).
+            return
 
         # Serial pre-stage: read image dims (header only — no pixel
         # decode), assign bucket / per-batch scale / flip in stream order
@@ -686,9 +711,10 @@ class _Batches(torch.utils.data.IterableDataset):
         try:
             for batch in batches:
                 # A tensor crosses to the caller in shared memory, an
-                # array through a pipe.
-                batch[InputFields.image] = torch.from_numpy(
-                    batch[InputFields.image])
+                # array through a pipe. A text batch has no canvas.
+                if InputFields.image in batch:
+                    batch[InputFields.image] = torch.from_numpy(
+                        batch[InputFields.image])
                 yield batch
         finally:
             batches.close()
@@ -706,9 +732,9 @@ def in_worker_process(pipe, device):
     """Yields `pipe`'s batches, made in one worker process: spawned, so it
     shares no interpreter lock with the caller and starts its own thread
     pools, with as many intra-op threads as the caller has. A batch's
-    canvas arrives as a CPU tensor in shared memory; for a CUDA `device`
-    a thread of the caller's copies it into page-locked memory. The other
-    fields are the pipeline's. Closing the generator stops the worker."""
+    canvas, where it has one, arrives as a CPU tensor in shared memory;
+    for a CUDA `device` a thread of the caller's copies it into
+    page-locked memory. The other fields are the pipeline's. Closing the generator stops the worker."""
     device = torch.device(device)
     loader = torch.utils.data.DataLoader(
         _Batches(pipe), batch_size=None, num_workers=1, prefetch_factor=2,

@@ -31,7 +31,7 @@ def build_example(
       image_id: str.
       image_encoded: encoded image bytes (PNG, JPEG) or None (text-only
         records).
-      captions: list of pre-tokenized captions (token lists).
+      captions: list of caption strings (or pre-tokenized lists).
       object_boxes: [N, 4] normalized ymin,xmin,ymax,xmax.
       object_texts: N class-name strings.
       object_labels: N int labels (1-based).

@@ -9,6 +9,9 @@ Mirrors the reference evaluator daemon (train/predict.py:328-611):
     is re-resized and per-iteration proposal scores are averaged before
     NMS (reference cap2det_model.py:231-272),
   * optional COCO->VOC class remap (``eval_coco_on_voc``),
+  * the text model: precision and recall at thresholds and at k
+    (``run_text_evaluation``), promoted on recall at 0.5; no predictor,
+    no HTML report,
   * metrics to JSONL/TensorBoard + CSV report + HTML gallery, best
     checkpoint promoted via saved_info.txt bookkeeping.
 
@@ -38,7 +41,7 @@ from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline as pipeline_lib
 from cap2det_tpu_torch.eval import coco_eval, voc_eval
 from cap2det_tpu_torch.eval.html_report import HTMLReport
-from cap2det_tpu_torch.fields import DetectionFields
+from cap2det_tpu_torch.fields import DetectionFields, InputFields
 from cap2det_tpu_torch.models import registry
 from cap2det_tpu_torch.train import checkpoint as ckpt_lib
 from cap2det_tpu_torch.train.metrics import MetricsWriter
@@ -143,13 +146,6 @@ class MultiScalePredictor:
         return out
 
 
-def _require_detection_model(model):
-    if not hasattr(model, "postprocess"):
-        raise NotImplementedError(
-            "evaluating a model without detections (the text model) is "
-            "not ported yet (ROADMAP.md queue 1 item 4)")
-
-
 def build_detection_evaluators(model, eval_coco_on_voc=False,
                                evaluator_kind="pascal"):
     """One evaluator per OICR iteration (reference predict.py:565-576).
@@ -180,6 +176,35 @@ def build_detection_evaluators(model, eval_coco_on_voc=False,
     ], categories
 
 
+def run_text_evaluation(pipeline_config, params, model=None,
+                        max_eval_examples=None, device="cuda"):
+    """Text-model evaluation: precision/recall at thresholds and @k
+    (reference models/text_model.py:84-126). Returns (metrics, [recall at
+    0.5]), the promotion metric in a list as ``run_evaluation``'s mAPs
+    are."""
+    if model is None:
+        model = registry.build(pipeline_config.model, is_training=False,
+                               device=device)
+    pipe = pipeline_lib.build_input_pipeline(
+        pipeline_config.eval_reader, **model.pipeline_kwargs())
+    metrics = model.make_metrics()
+    count = 0
+    batches = iter(pipe)
+    try:
+        for host_batch in batches:
+            model.evaluate_batch(metrics, params,
+                                 model.device_batch(host_batch))
+            # Count EXAMPLES (the detection path's unit), not batches.
+            count += len(host_batch[InputFields.image_id])
+            if max_eval_examples and count >= max_eval_examples:
+                break
+    finally:
+        batches.close()
+    result = metrics.result()
+    result["num_examples"] = count
+    return result, [result["metrics/recall_at_0.5"]]
+
+
 def run_evaluation(
     pipeline_config: schema.Pipeline,
     params,
@@ -195,12 +220,15 @@ def run_evaluation(
 
     `params` are port tensors on the model's device. Pass a `predictor`
     (its params are replaced by `params`) when evaluating many
-    checkpoints. Without `model`, one is built on `device`.
+    checkpoints. Without `model`, one is built on `device`. A model
+    without detections (the text model) goes to ``run_text_evaluation``.
     """
     if model is None:
         model = registry.build(pipeline_config.model, is_training=False,
                                device=device)
-    _require_detection_model(model)
+    if not hasattr(model, "postprocess"):  # the text model
+        return run_text_evaluation(pipeline_config, params, model=model,
+                                   max_eval_examples=max_eval_examples)
     reader_cfg = pipeline_config.eval_reader.cap2det_reader
     pipe = pipeline_lib.InputPipeline(reader_cfg, prefetch=0)
     if predictor is None:
@@ -321,7 +349,6 @@ def continuous_evaluation(
     model_dir = model_dir or pipeline_config.model_dir
     model = registry.build(pipeline_config.model, is_training=False,
                            device=device)
-    _require_detection_model(model)
     saved_dir = os.path.join(model_dir, "saved_ckpts")
     # Eval curves to TensorBoard beside the trainer's (reference
     # train/predict.py:491-496 writes per-iteration mAP/CorLoc summaries);
@@ -365,10 +392,14 @@ def _poll_loop(
     evaluated = set()
     idle = 0
     best = None
-    # Built once and given each checkpoint's params (update_params).
-    predictor = MultiScalePredictor(
-        model, None, pipeline_config.eval_reader.cap2det_reader
-    )
+    # Built once and given each checkpoint's params (update_params); the
+    # text model has no predictor and no HTML report.
+    detection = hasattr(model, "postprocess")
+    predictor = None
+    if detection:
+        predictor = MultiScalePredictor(
+            model, None, pipeline_config.eval_reader.cap2det_reader
+        )
     while True:
         if evaluate_all:
             step, path = None, None
@@ -404,8 +435,13 @@ def _poll_loop(
         saved = state["ema"] if "ema" in state else state["params"]
         params = params_lib.from_jax_numpy(saved, model.device)
 
-        report = HTMLReport(model.label_extractor.classes, max_examples=20)
-        final_iter = model.options.oicr_iterations
+        report = visualize_fn = None
+        if detection:
+            report = HTMLReport(model.label_extractor.classes,
+                                max_examples=20)
+            final_iter = model.options.oicr_iterations
+            visualize_fn = lambda ex, res: report.add_example(  # noqa: E731
+                ex, res, final_iter)
         eval_start = time.time()
         metrics, map_per_iter = run_evaluation(
             pipeline_config,
@@ -413,8 +449,7 @@ def _poll_loop(
             model=model,
             max_eval_examples=max_eval_examples,
             eval_coco_on_voc=eval_coco_on_voc,
-            visualize_fn=lambda ex, res: report.add_example(ex, res,
-                                                            final_iter),
+            visualize_fn=visualize_fn,
             evaluator_kind=evaluator_kind,
             predictor=predictor,
         )
@@ -422,7 +457,9 @@ def _poll_loop(
         # save_checkpoints_steps cadence the daemon silently skips
         # checkpoints and degrades best-ckpt selection — keep it visible.
         metrics["eval/seconds_per_checkpoint"] = time.time() - eval_start
-        report.write(os.path.join(model_dir, "eval_report_%d.html" % step))
+        if report is not None:
+            report.write(os.path.join(model_dir,
+                                      "eval_report_%d.html" % step))
         final_map = map_per_iter[-1]
         log.info("step %d mAP per iter: %s (%.1fs)", step, map_per_iter,
                  metrics["eval/seconds_per_checkpoint"])

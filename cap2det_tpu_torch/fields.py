@@ -45,6 +45,10 @@ class InputFields:
     caption_strings = "caption_strings"
     caption_lengths = "caption_lengths"
 
+    # Host-side token ids of the concatenated captions (the input
+    # pipeline looks the strings up; no strings reach the device).
+    concat_caption_token_ids = "concat_caption_token_ids"
+
     num_objects = "number_of_objects"
     object_boxes = "object_boxes"
     object_texts = "object_texts"

@@ -31,7 +31,12 @@ class Cap2DetModel:
     Activations and conv weights run in ``compute_dtype``; the heads and
     losses run in float32. ``predictions`` reads the tree that ``prepare``
     makes from the params: once for serving, inside ``loss`` for
-    training."""
+    training.
+
+    The label extractor is the host side of the input pipeline, as in the
+    JAX package: it makes labels in the feed's worker process. A text
+    classifier there is built with device="cpu", loads its checkpoint in
+    that process at its first batch, and never starts CUDA."""
 
     non_trainable_paths = ("word_embedding",)
     non_trainable_substrings = ("/BatchNorm/moving_",)
@@ -41,9 +46,13 @@ class Cap2DetModel:
         self._options = options
         self._compute_dtype = compute_dtype
         self._device = params_lib.resolve_device(device)
+        extractor_kwargs = {}  # a text classifier runs on the CPU
+        if (options.label_extractor is not None
+                and options.label_extractor.which_oneof()
+                == "text_classifier_match_extractor"):
+            extractor_kwargs["device"] = "cpu"
         self.label_extractor = extractors_lib.build_label_extractor(
-            options.label_extractor
-        )
+            options.label_extractor, **extractor_kwargs)
         self._midn_post = nms.build_post_processor(options.midn_post_processor)
         self._oicr_post = nms.build_post_processor(options.oicr_post_processor)
         hp = options.fc_hyperparams

@@ -12,6 +12,8 @@ in PyTorch's layout:
   ``pointwise_weights``  HWIO [1,1,cin*m,cout]  OIHW [cout,cin*m,1,1]
   ``depthwise_weights``  [kh,kw,cin,m]          [cin,m,kh,kw]
   FC ``weights``         [in,out]               [out,in] (F.linear)
+  word-embedding table   [vocab,dims]           [dims,vocab] (read as
+                                                its transpose)
   vectors (BN, biases)   [n]                    [n]
   =====================  ====================  =======================
 

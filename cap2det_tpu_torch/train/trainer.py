@@ -193,7 +193,8 @@ def train(
         "input/wait_sec", the seconds the loop waited on the input
         pipeline before the step, "input/place_sec", the seconds it spent
         pinning batches and queuing their copies to the device, and
-        "input/canvas_height" / "input/canvas_width", the step's canvas.
+        "input/canvas_height" / "input/canvas_width", the step's canvas
+        (image batches only).
       pretrained_checkpoint: optional converted ImageNet backbone in the
         port's checkpoint format (``checkpoint.restore_params`` reads it);
         overlaid on fresh inits only — resuming from a checkpoint wins
@@ -267,11 +268,12 @@ def train(
                     _stop_profile(profiler, profile_dir, device)
                     profiler = None
             state, logs = train_step(state, batch, seed)
-            canvas = batch["image"].shape
             logs["input/wait_sec"] = timing["wait"]
             logs["input/place_sec"] = timing["place"]
-            logs["input/canvas_height"] = float(canvas[1])
-            logs["input/canvas_width"] = float(canvas[2])
+            if "image" in batch:  # a text batch has no canvas
+                canvas = batch["image"].shape
+                logs["input/canvas_height"] = float(canvas[1])
+                logs["input/canvas_width"] = float(canvas[2])
             step += 1
             window_steps += 1
             window_examples += batch_size

@@ -66,7 +66,24 @@ Phases (any failure ends the run with a nonzero exit code):
      export_main and evaluate_main --run_once in a subprocess;
  12. overfit_map: tests/test_e2e_map.py's run on the card
      (cap2det_tpu_torch/tools/overfit_map.py): passthrough warm start, 300
-     train() steps, the daemon's final mAP >= 0.5 at step 300.
+     train() steps, the daemon's final mAP >= 0.5 at step 300;
+ 13. text_model: configs/coco17_text.pbtxt as shipped (data/
+     coco_open_vocab.txt with a seeded [7379, 300] stand-in for its GloVe
+     table, hidden 400, 80 classes, batch 20, dropout 0.5) over 400 seeded
+     text-only records: train() for 300 steps, three checkpoints, then
+     continuous_evaluation over them; no kernel launches; step times, the
+     feed's wait, peak memory, the loss falling, P/R and seconds per
+     checkpoint; card vs CPU float32 logits of one batch, and the
+     dropout's division by 0.5 and 0.7 bit for bit;
+ 14. text_cap2det: Cap2Det train() at
+     configs/coco17_text_classifier_match.pbtxt as shipped, its text
+     classifier warm-started from phase 13's model_dir, over train_loop's
+     records plus records whose captions name only synonyms: launches per
+     step K1 1, K4 3, K2 1, K5 2, K6 1 through at least two canvas
+     buckets, step medians, peak memory, the images labelled beyond an
+     exact match, the extractor's labels on the card against the CPU's
+     (every flip with its margin); then a few steps of
+     configs/coco17_word_vector_match.pbtxt.
 
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 (features [2, 76, 114, 576], P=500).
@@ -87,6 +104,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1295,7 +1313,8 @@ def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
     """trainer.train() on the card with a hook that records, per step, a
     CUDA event and the host clock at its end, the loop's wait on the
     input pipeline, its pinning and queuing of the batches' copies, the
-    canvas and the kernel launches. Returns (state, records,
+    canvas (None for a text batch), the loss (a tensor, read later) and
+    the kernel launches. Returns (state, records,
     start event, host start, wall seconds)."""
     records = []
     previous = [launch_counts()]
@@ -1304,12 +1323,15 @@ def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
         end = torch.cuda.Event(enable_timing=True)
         end.record()
         now = launch_counts()
+        canvas = None  # a text batch has none
+        if "input/canvas_height" in logs:
+            canvas = (int(logs["input/canvas_height"]),
+                      int(logs["input/canvas_width"]))
         records.append({
             "step": step, "host": time.perf_counter(), "event": end,
             "wait": logs["input/wait_sec"],
-            "place": logs["input/place_sec"],
-            "canvas": (int(logs["input/canvas_height"]),
-                       int(logs["input/canvas_width"])),
+            "place": logs["input/place_sec"], "canvas": canvas,
+            "loss": logs["loss/total_loss"],
             "launches": {k: now[k] - previous[0][k] for k in KERNELS}})
         previous[0] = now
 
@@ -1323,12 +1345,13 @@ def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
     return state, records, start, t_start, time.perf_counter() - t_start
 
 
-def report_steps(tag, records, start, t_start, train_config):
+def report_steps(tag, records, start, t_start, train_config,
+                 phase="train_loop"):
     """Logs, per canvas bucket, the step's time on the card's timeline
     (event to event) and on the host clock (hook to hook), the loop's
-    wait on the input pipeline and its time placing batches. A bucket's first step, and the steps that wrote
-    metrics or a checkpoint, are reported apart. Returns the medians over
-    the other steps."""
+    wait on the input pipeline and its time placing batches. A bucket's
+    first step, and the steps that wrote metrics or a checkpoint, are
+    reported apart. Returns the medians over the other steps."""
     def side(r):
         return (r["step"] % train_config.save_checkpoints_steps == 0
                 or r["step"] % train_config.log_step_count_steps == 0)
@@ -1343,10 +1366,10 @@ def report_steps(tag, records, start, t_start, train_config):
             b["first"] = r
         elif not side(r):
             b["steps"].append(r)
-    for canvas in sorted(per_bucket):
+    for canvas in sorted(per_bucket, key=lambda c: c or ()):
         b = per_bucket[canvas]
         first = b["first"]
-        line = {"run": tag, "bucket": "%dx%d" % canvas,
+        line = {"run": tag, "bucket": "%dx%d" % canvas if canvas else "text",
                 "steps": 1 + len(b["steps"]),
                 "first_step": {"step": first["step"],
                                "event_ms": first["event_ms"],
@@ -1364,8 +1387,8 @@ def report_steps(tag, records, start, t_start, train_config):
                 "median_place_s": float(np.median(
                     [r["place"] for r in b["steps"]])),
                 "samples_event_ms": [r["event_ms"] for r in b["steps"]]})
-        log("train_loop: " + json.dumps(line))
-    log("train_loop: %s: steps that wrote metrics or a checkpoint: %s" % (
+        log(phase + ": " + json.dumps(line))
+    log(phase + ": %s: steps that wrote metrics or a checkpoint: %s" % (
         tag, json.dumps([{"step": r["step"], "event_ms": r["event_ms"],
                           "host_s": r["host_s"], "wait_s": r["wait"],
                           "place_s": r["place"]}
@@ -1376,7 +1399,7 @@ def report_steps(tag, records, start, t_start, train_config):
                "host_s": float(np.median([r["host_s"] for r in steady])),
                "wait_s": float(np.median([r["wait"] for r in steady])),
                "place_s": float(np.median([r["place"] for r in steady]))}
-    log("train_loop: %s: over %d steps (no bucket's first, none that wrote),"
+    log(phase + ": %s: over %d steps (no bucket's first, none that wrote),"
         " median event_ms %r, host_s %r, wait_s %r, place_s %r; wait share "
         "of host time %r" % (tag, len(steady), medians["event_ms"],
                              medians["host_s"], medians["wait_s"],
@@ -1841,6 +1864,343 @@ def phase_overfit_map(torch):
                              % evaluated)
 
 
+# The text model at configs/coco17_text.pbtxt width: data/coco_open_vocab.txt
+# (7379 words + OOV) with a seeded stand-in for its 300-d GloVe table, which
+# is not in the repository. GloVe's components have a spread of about 0.4.
+GLOVE_DIMS = 300
+GLOVE_STD = 0.4
+TEXT_TRAIN_RECORDS = 400
+TEXT_EVAL_RECORDS = 100
+TEXT_STEPS = 300
+TEXT_SAVE_EVERY = 100  # three checkpoints for the daemon
+# Card float32 against CPU float32 logits: products over 300 and 400 terms
+# summed in another order (TF32 off).
+TEXT_LOGIT_TOL = (1e-4, 1e-5)  # (rtol, atol)
+# A classifier label that flips between the card and the CPU further than
+# this from label_threshold (in probability) is no rounding difference.
+FLIP_MARGIN = 1e-4
+TEXT_CAP2DET_STEPS = 12
+WORD_VECTOR_STEPS = 4
+COCO_TRAIN_PATTERN = '"output/records/coco17_train.record*"'
+COCO_VAL_PATTERN = '"output/records/coco17_val.record*"'
+GLOVE_FILE = "'data/coco_open_vocab_300d.npy'"
+TEXT_CHECKPOINT = "'zoo/coco17_text'"
+
+
+def shipped_config_text(name, replacements):
+    """The text of configs/<name> with each (old, new) replaced; raises if
+    an `old` is not in it."""
+    with open(os.path.join("configs", name)) as f:
+        text = f.read()
+    for old, new in replacements:
+        if old not in text:
+            raise AssertionError("%s has no %s" % (name, old))
+        text = text.replace(old, new)
+    return text
+
+
+def write_text_inputs(directory):
+    """A seeded stand-in for data/coco_open_vocab_300d.npy ([7379, 300],
+    normal with GloVe's spread) and seeded text-only records whose
+    captions name COCO classes (data/synthetic.py, with_image=False):
+    TEXT_TRAIN_RECORDS for training, TEXT_EVAL_RECORDS for evaluation.
+    Returns (embedding file, train record, eval record)."""
+    from cap2det_tpu_torch.data import synthetic
+    from cap2det_tpu_torch.text import vocab
+
+    words = vocab.load_lines(os.path.join("data", "coco_open_vocab.txt"))
+    classes = vocab.load_lines(os.path.join("data", "coco_label.txt"))
+    emb_file = os.path.join(directory, "coco_open_vocab_300d.npy")
+    np.save(emb_file, (GLOVE_STD * np.random.default_rng(SEED + 20)
+                       .standard_normal((len(words), GLOVE_DIMS)))
+            .astype(np.float32))
+    records = []
+    for name, count, seed in (("train", TEXT_TRAIN_RECORDS, SEED + 21),
+                              ("val", TEXT_EVAL_RECORDS, SEED + 22)):
+        records.append(synthetic.write_synthetic_dataset(
+            os.path.join(directory, "text-%s.record" % name),
+            num_examples=count, seed=seed, classes=classes,
+            with_image=False))
+    return (emb_file,) + tuple(records)
+
+
+def phase_text_model(torch, directory):
+    """text_model: configs/coco17_text.pbtxt as shipped (7379 words + OOV,
+    a seeded [7379, 300] stand-in table, hidden 400, 80 classes, batch 20,
+    64 caption tokens, dropout 0.5, regularizer 1e-5, Adagrad lr 0.1) over
+    seeded text-only records: train() for TEXT_STEPS steps with a
+    checkpoint every TEXT_SAVE_EVERY, then continuous_evaluation
+    (evaluate_all) over the checkpoints. No kernel launches in either (the
+    counts set to 0 just before each). The step on the card's timeline and
+    the host clock, the feed's wait, peak memory, the loss falling; P/R
+    per checkpoint and seconds per checkpoint. Card against CPU: one
+    float32 batch's logits within TEXT_LOGIT_TOL, and the dropout's
+    division by 0.5 and 0.7 bit for bit.
+
+    Returns the model_dir and the stand-in table's path."""
+    from cap2det_tpu_torch import params as params_lib
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.data import pipeline as pipeline_lib
+    from cap2det_tpu_torch.eval import evaluator
+    from cap2det_tpu_torch.models import registry
+    from cap2det_tpu_torch.text import classifier
+    from cap2det_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    emb_file, train_record, eval_record = write_text_inputs(directory)
+    log("text_model: wrote a [7379, %d] stand-in table and %d + %d text "
+        "records in %.1f s" % (GLOVE_DIMS, TEXT_TRAIN_RECORDS,
+                               TEXT_EVAL_RECORDS, time.perf_counter() - t0))
+    cfg = schema.loads_pipeline(shipped_config_text("coco17_text.pbtxt", [
+        (COCO_TRAIN_PATTERN, '"%s"' % train_record),
+        (COCO_VAL_PATTERN, '"%s"' % eval_record),
+        (GLOVE_FILE, "'%s'" % emb_file)]))
+    cfg.train_config.save_checkpoints_steps = TEXT_SAVE_EVERY
+    model_dir = os.path.join(directory, "text_model")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, records, start, t_start, wall = run_train(
+        torch, trainer, cfg, model_dir, TEXT_STEPS)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError("text_model: the text step launched %s"
+                             % launches)
+    losses = [float(r["loss"]) for r in records]
+    if [r["step"] for r in records] != list(range(1, TEXT_STEPS + 1)) or (
+            not np.all(np.isfinite(losses))):
+        raise AssertionError("text_model: steps %s, losses %s" % (
+            [r["step"] for r in records], losses))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        raise AssertionError("text_model: the loss did not fall: %r -> %r"
+                             % (first, last))
+    medians = report_steps("train()", records, start, t_start,
+                           cfg.train_config, phase="text_model")
+    log("text_model: %d steps in %.2f s; loss %r -> %r (mean of the first "
+        "and last 10: %r -> %r); launches %s; peak memory %d bytes" % (
+            TEXT_STEPS, wall, losses[0], losses[-1], first, last,
+            json.dumps(launches), peak))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = evaluator.continuous_evaluation(
+        cfg, model_dir=model_dir, max_idle_polls=0, evaluate_all=True,
+        poll_interval_secs=0)
+    eval_wall = time.perf_counter() - t0
+    eval_launches = launch_counts()
+    if any(eval_launches.values()):
+        raise AssertionError("text_model: evaluation launched %s"
+                             % eval_launches)
+    with open(os.path.join(model_dir, "eval_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [TEXT_SAVE_EVERY * (i + 1)
+             for i in range(TEXT_STEPS // TEXT_SAVE_EVERY)]
+    if [r["step"] for r in rows] != steps or any(
+            r["num_examples"] != TEXT_EVAL_RECORDS for r in rows):
+        raise AssertionError("text_model: eval rows %s" % rows)
+    for r in rows:
+        log("text_model: eval " + json.dumps(
+            {k: v for k, v in r.items()
+             if k.startswith(("metrics/", "eval/")) or k == "step"}))
+    log("text_model: daemon over %d checkpoints in %.2f s, best %s, "
+        "launches %s, peak memory %d bytes" % (
+            len(rows), eval_wall, best, json.dumps(eval_launches),
+            torch.cuda.max_memory_allocated()))
+
+    # One float32 batch's logits, the card against the CPU.
+    pipe = pipeline_lib.build_input_pipeline(
+        cfg.train_reader, seed=SEED, **registry.build(
+            cfg.model, device="cpu").pipeline_kwargs())
+    it = iter(pipe)
+    try:
+        host = next(it)
+    finally:
+        it.close()
+    tree = params_lib.to_jax_numpy(state["params"])
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = registry.build(cfg.model, device=device)
+        logits[device] = model.predict_logits(
+            params_lib.from_jax_numpy(tree, device),
+            model.device_batch(host)).detach().cpu()
+    rtol, atol = TEXT_LOGIT_TOL
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=rtol,
+                               atol=atol)
+    x = torch.from_numpy(np.random.default_rng(SEED + 23).uniform(
+        0.0, 3.0, (20, 400)).astype(np.float32))
+    differ = {}
+    for keep in (0.5, 0.7):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        got = classifier.dropout(x.cuda(), keep, gen).cpu()
+        want = torch.where(got != 0, x / torch.tensor(keep),
+                           torch.zeros_like(x))
+        differ[keep] = int((got != want).sum())
+    log("text_model: card vs CPU logits of a [%d, %d] batch, max|err| %r "
+        "(rtol %g, atol %g); dropout x / keep over %d values differs in %s"
+        % (tuple(host["concat_caption_token_ids"].shape) + (
+            float((logits["cuda"] - logits["cpu"]).abs().max()), rtol, atol,
+            x.numel(), json.dumps(differ))))
+    if any(differ.values()):
+        raise AssertionError("text_model: the dropout's division differs")
+    log("text_model: " + json.dumps({
+        "median_event_ms": medians["event_ms"],
+        "median_host_s": medians["host_s"],
+        "median_wait_s": medians["wait_s"], "peak_bytes": peak,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "seconds_per_checkpoint": [r["eval/seconds_per_checkpoint"]
+                                   for r in rows],
+        "recall_at_0.5": [r["metrics/recall_at_0.5"] for r in rows],
+        "precision_at_1": [r["metrics/precision_at_1"] for r in rows]}))
+    return model_dir, emb_file
+
+
+def write_synonym_records(directory, image_hw=(480, 640), count=8):
+    """Seeded PNG records at coco17's shape whose captions name a
+    single-word synonym of a COCO class (data/coco_label_synonyms.txt)
+    and no class name: no exact match, so the text classifier labels
+    them."""
+    from cap2det_tpu_torch.data import synthetic
+    from cap2det_tpu_torch.text import vocab
+
+    classes, name2id = vocab.load_synonym_table(
+        os.path.join("data", "coco_label_synonyms.txt"))
+    words = set(vocab.load_lines(os.path.join("data",
+                                              "coco_open_vocab.txt")))
+    synonyms = sorted(n for n in name2id if n in words and n not in classes)
+    return synthetic.write_synthetic_dataset(
+        os.path.join(directory, "train-synonym.record"), num_examples=count,
+        seed=SEED + 24, classes=synonyms, image_hw=image_hw,
+        num_proposals=TRAIN_P, smooth=True)
+
+
+def labels_card_vs_cpu(torch, extractor_cfg, texts):
+    """The text classifier's labels for `texts` on the card and on the CPU
+    (the extractor Cap2Det builds): every flip of sigmoid > threshold,
+    with its margin to the threshold; raises on a flip further than
+    FLIP_MARGIN. Returns (CPU labels, exact-match rows, flips)."""
+    from cap2det_tpu_torch.text import extractors
+
+    ex = {d: extractors.build_label_extractor(extractor_cfg, device=d)
+          for d in ("cuda", "cpu")}
+    labels = {d: e.extract_labels(texts) for d, e in ex.items()}
+    ids = ex["cpu"].encode_tokens(texts)
+    probas = {d: 1.0 / (1.0 + np.exp(-e.predict_logits(ids).cpu().numpy()))
+              for d, e in ex.items()}
+    threshold = extractor_cfg.text_classifier_match_extractor.label_threshold
+    flips = [{"caption": i, "class": int(c),
+              "margin": float(abs(probas["cpu"][i, c] - threshold))}
+             for i, c in zip(*np.nonzero((probas["cuda"] > threshold)
+                                         != (probas["cpu"] > threshold)))]
+    exact = extractors.match_labels(
+        texts, {c: i for i, c in enumerate(ex["cpu"].classes)},
+        ex["cpu"].num_classes).any(axis=1)
+    log("text_cap2det: labels card vs CPU over %d captions x %d classes: "
+        "%d classifier flips %s; labels differ in %d rows; least margin to "
+        "the threshold %r" % (
+            len(texts), ex["cpu"].num_classes, len(flips), json.dumps(flips),
+            int((labels["cuda"] != labels["cpu"]).any(axis=1).sum()),
+            float(np.abs(probas["cpu"] - threshold).min())))
+    if any(f["margin"] > FLIP_MARGIN for f in flips):
+        raise AssertionError("text_cap2det: a label flipped further than %g "
+                             "from the threshold" % FLIP_MARGIN)
+    return labels["cpu"], exact, flips
+
+
+def phase_text_cap2det(torch, directory, text_model_dir, emb_file):
+    """text_cap2det: Cap2Det train() at
+    configs/coco17_text_classifier_match.pbtxt as shipped, its text
+    classifier warm-started from the text_model phase's model_dir, over
+    train_loop's PNG records plus records whose captions name only
+    synonyms: launches per step K1 1, K4 3, K2 1, K5 2, K6 1 through at
+    least two canvas buckets (counts set to 0 just before), step medians,
+    peak memory; the images the classifier labelled beyond an exact
+    match; the extractor's labels on the card against the CPU's. Then
+    WORD_VECTOR_STEPS steps of configs/coco17_word_vector_match.pbtxt.
+
+    Returns the launches of the text_classifier_match run."""
+    import glob
+
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.data import pipeline as pipeline_lib
+    from cap2det_tpu_torch.data import tfrecord
+    from cap2det_tpu_torch.train import trainer
+
+    pattern = write_train_records(directory, 8, (480, 640), SEED + 9)
+    write_synonym_records(directory)
+    replacements = [(COCO_TRAIN_PATTERN, '"%s"' % pattern),
+                    (GLOVE_FILE, "'%s'" % emb_file)]
+    cfg = schema.loads_pipeline(shipped_config_text(
+        "coco17_text_classifier_match.pbtxt", replacements + [
+            (TEXT_CHECKPOINT, "'%s'" % text_model_dir)]))
+    cfg.train_config.log_step_count_steps = 5
+    extractor_cfg = cfg.model.cap2det_model.label_extractor
+
+    texts = [pipeline_lib.parse_example(record, False)["concat_tokens"]
+             for path in sorted(glob.glob(pattern))
+             for record in tfrecord.read_records(path)]
+    labels, exact, flips = labels_card_vs_cpu(torch, extractor_cfg, texts)
+    beyond = int((labels.any(axis=1) & ~exact).sum())
+    log("text_cap2det: %d images, %d with an exact class match; the "
+        "classifier labelled %d of the other %d (%d labels)" % (
+            len(texts), int(exact.sum()), beyond, int((~exact).sum()),
+            int(labels[~exact].sum())))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _, records, start, t_start, wall = run_train(
+        torch, trainer, cfg, os.path.join(directory, "text_cap2det"),
+        TEXT_CAP2DET_STEPS)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [r["step"] for r in records if r["launches"] != PER_STEP]
+    buckets = {r["canvas"] for r in records}
+    if bad or len(records) != TEXT_CAP2DET_STEPS or len(buckets) < 2:
+        raise AssertionError("text_cap2det: steps %s launched other than %s;"
+                             " %d steps; buckets %s" % (
+                                 bad, PER_STEP, len(records), buckets))
+    losses = [float(r["loss"]) for r in records]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("text_cap2det: losses %s" % losses)
+    medians = report_steps("text_classifier_match", records, start, t_start,
+                           cfg.train_config, phase="text_cap2det")
+    log("text_cap2det: %d steps in %.2f s through %d canvas buckets; "
+        "launches %s (per step %s); losses %s; peak memory %d bytes" % (
+            TEXT_CAP2DET_STEPS, wall, len(buckets), json.dumps(launches),
+            json.dumps(PER_STEP), json.dumps(losses), peak))
+
+    cfg = schema.loads_pipeline(shipped_config_text(
+        "coco17_word_vector_match.pbtxt", replacements))
+    reset_launch_counts()
+    _, wv_records, start, _, wv_wall = run_train(
+        torch, trainer, cfg, os.path.join(directory, "word_vector"),
+        WORD_VECTOR_STEPS)
+    wv_launches = launch_counts()
+    if [r["launches"] for r in wv_records] != [PER_STEP] * WORD_VECTOR_STEPS:
+        raise AssertionError("text_cap2det: word_vector_match launched %s"
+                             % [r["launches"] for r in wv_records])
+    event_ms = [(prev["event"] if prev else start).elapsed_time(r["event"])
+                for prev, r in zip([None] + wv_records[:-1], wv_records)]
+    log("text_cap2det: word_vector_match %d steps in %.2f s, step ms on the "
+        "card %s, canvases %s, losses %s, launches %s" % (
+            WORD_VECTOR_STEPS, wv_wall, json.dumps(event_ms),
+            json.dumps([r["canvas"] for r in wv_records]),
+            json.dumps([float(r["loss"]) for r in wv_records]),
+            json.dumps(wv_launches)))
+    log("text_cap2det: " + json.dumps({
+        "median_event_ms": medians["event_ms"],
+        "median_host_s": medians["host_s"],
+        "median_wait_s": medians["wait_s"], "peak_bytes": peak,
+        "labelled_beyond_exact": beyond, "flips": len(flips),
+        "buckets": len(buckets)}))
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -1889,15 +2249,22 @@ def main(argv):
     eval_launches = phase_eval_daemon(torch)
     torch.cuda.empty_cache()
     phase_overfit_map(torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+        text_model_dir, emb_file = phase_text_model(torch, tmp)
+        torch.cuda.empty_cache()
+        text_launches = phase_text_cap2det(torch, tmp, text_model_dir,
+                                           emb_file)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
     log("chip_smoke: the eval daemon's launches (two checkpoints) %s"
         % json.dumps(eval_launches))
 
     # Launches: the train() run of the train_loop phase, the main path,
     # which runs all five (the coco17 step phase does too).
-    if min(launches.values()) < 1 or min(coco["launches"].values()) < 1:
-        raise AssertionError("a kernel did not run in training: %s, %s"
-                             % (launches, coco["launches"]))
+    if min(launches.values()) < 1 or min(coco["launches"].values()) < 1 or (
+            min(text_launches.values()) < 1):
+        raise AssertionError("a kernel did not run in training: %s, %s, %s"
+                             % (launches, coco["launches"], text_launches))
     rows = [
         ("roi_crop_maxpool", "roi_pool.cu", "roi_pool.py:1213", k1),
         ("pool_fwd", "pool.cu", "pool_grad.py:350", k4),

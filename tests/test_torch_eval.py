@@ -279,15 +279,6 @@ def test_update_params_prepares_again(models):
                                   "oicr_proposal_scores_at_1"])
 
 
-def test_run_evaluation_refuses_a_model_without_detections(models):
-    class TextModel:
-        options = models["model"].options
-
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        evaluator.run_evaluation(models["cfg"], models["params"],
-                                 model=TextModel())
-
-
 # -- the daemon over checkpoints written by the port's train() ---------------
 
 

@@ -593,3 +593,88 @@ def test_softmax_on_the_card_equals_the_cpu(cuda):
     x = torch.from_numpy(np.random.default_rng(11).normal(
         0, 3, (50, 2000, 21)).astype(np.float32))
     assert torch.equal(softmax.softmax(x.to(cuda)).cpu(), softmax.softmax(x))
+
+
+# -- the text model ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("keep", [0.5, 0.7])
+def test_text_dropout_divides_as_the_cpu(cuda, keep):
+    """The text classifier's dropout on its [batch 20, hidden 400] pooled
+    features: the card's quotient equals the CPU's IEEE one at the
+    configs' 0.5 and at 0.7, no power of two."""
+    from cap2det_tpu_torch.text import classifier
+
+    x = torch.from_numpy(np.random.default_rng(12).uniform(
+        0.0, 3.0, (20, 400)).astype(np.float32))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    got = classifier.dropout(x.to(cuda), keep, gen).cpu()
+    kept = got != 0
+    assert abs(kept.float().mean().item() - keep) < 0.03
+    want = torch.where(kept, x / torch.tensor(keep), torch.zeros_like(x))
+    assert torch.equal(got, want)
+
+
+def _text_tree(num_words=300, dims=32, hidden=40, classes=8, seed=13):
+    from cap2det_tpu_torch.text import classifier
+
+    rng = np.random.default_rng(seed)
+    table = classifier.build_embedding_table(rng.standard_normal(
+        (num_words, dims)).astype(np.float32))
+    tree = classifier.init_params_numpy(seed, num_words + 1, dims, hidden,
+                                        classes, table)
+    tree["text_classifier"]["layer2"]["weights"] *= 3.0
+    return tree
+
+
+def test_text_classifier_on_the_card_equals_the_cpu(cuda):
+    """float32 logits of classifier.apply, the card against the CPU (TF32
+    off; the products sum in another order): rtol 1e-5, atol 1e-6. An
+    all-OOV caption included."""
+    from cap2det_tpu_torch import params as params_lib
+    from cap2det_tpu_torch.text import classifier
+
+    tree = _text_tree()
+    ids = np.random.default_rng(14).integers(0, 301, (20, 64)).astype(
+        np.int32)
+    ids[0] = 300
+    want = classifier.apply(params_lib.from_jax_numpy(tree, "cpu"),
+                            torch.from_numpy(ids), 300)
+    got = classifier.apply(params_lib.from_jax_numpy(tree, cuda),
+                           torch.from_numpy(ids).to(cuda), 300)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_text_extractor_labels_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """TextClassifierMatchExtractor on the card and on the CPU give the
+    same labels on seeded captions whose probabilities keep at least 1e-4
+    from the 0.7 threshold (asserted on the CPU's)."""
+    from cap2det_tpu_torch import params as params_lib
+    from cap2det_tpu_torch.text import extractors
+
+    words = ["w%d" % i for i in range(300)]
+    (tmp_path / "vocab.txt").write_text("\n".join(words))
+    (tmp_path / "labels.txt").write_text("\n".join(
+        "class%d" % i for i in range(8)))
+    np.save(tmp_path / "emb.npy", np.random.default_rng(13).standard_normal(
+        (300, 32)).astype(np.float32))
+    options = schema.TextClassifierMatchExtractor.from_dict({
+        "label_file": str(tmp_path / "labels.txt"),
+        "open_vocabulary_file": str(tmp_path / "vocab.txt"),
+        "open_vocabulary_word_embedding_file": str(tmp_path / "emb.npy"),
+        "hidden_units": 40, "label_threshold": 0.7})
+    tree = _text_tree()
+    rng = np.random.default_rng(15)
+    texts = [[words[i] for i in rng.integers(0, 300, rng.integers(1, 20))]
+             for _ in range(200)]
+    on_cpu = extractors.TextClassifierMatchExtractor(options, device="cpu")
+    on_cpu.set_params(params_lib.from_jax_numpy(tree, "cpu"))
+    logits = on_cpu.predict_logits(on_cpu.encode_tokens(texts)).numpy()
+    margin = np.abs(1 / (1 + np.exp(-logits)) - 0.7).min(axis=1)
+    texts = [t for t, m in zip(texts, margin) if m > 1e-4]
+    assert len(texts) > 150
+    on_card = extractors.TextClassifierMatchExtractor(options, device=cuda)
+    on_card.set_params(params_lib.from_jax_numpy(tree, cuda))
+    want = on_cpu.extract_labels(texts)
+    assert 0 < want.sum() < want.size
+    np.testing.assert_array_equal(on_card.extract_labels(texts), want)

@@ -211,10 +211,6 @@ def test_refuses_what_is_not_ported(port_records, tmp_path):
     def reader(extra):
         return _reader(schema, 'input_pattern: "%s" %s' % (pattern, extra))
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        pipeline.InputPipeline(reader("decode_image: false"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        pipeline.InputPipeline(reader(""), vocab=object())
     with pytest.raises(ValueError, match="opt in"):
         pipeline.InputPipeline(reader(
             "preprocess_options { random_hue_prob: 0.5 }"))
@@ -228,6 +224,93 @@ def test_refuses_what_is_not_ported(port_records, tmp_path):
     with pytest.raises(FileNotFoundError, match="no files match"):
         _take(pipeline.InputPipeline(_reader(
             schema, 'input_pattern: "%s"' % (tmp_path / "absent*"))), 1)
+
+
+TEXT_KEYS = (InputFields.num_captions, InputFields.caption_lengths,
+             InputFields.concat_caption_token_ids, InputFields.pseudo_labels)
+TEXT_WORDS = ["person", "dog", "a", "the", "photo", "of", "near"]
+
+
+def _text_pipelines(pattern, label_file, max_caption_tokens):
+    """Both packages' text pipelines (decode_image: false) with a
+    vocabulary that misses some caption words."""
+    from cap2det_tpu.text import vocab as jax_vocab
+    from cap2det_tpu_torch.text import vocab
+
+    text = ('input_pattern: "%s" is_training: true shuffle_buffer_size: 4 '
+            'batch_size: 3 decode_image: false' % pattern)
+    extractor = {"groundtruth_extractor": {"label_file": label_file}}
+    want = jax_pipeline.InputPipeline(
+        _reader(jax_schema, text),
+        label_extractor=jax_extractors.build_label_extractor(
+            jax_schema.LabelExtractor.from_dict(extractor)),
+        vocab=jax_vocab.Vocabulary(TEXT_WORDS), seed=5,
+        max_caption_tokens=max_caption_tokens)
+    got = pipeline.InputPipeline(
+        _reader(schema, text),
+        label_extractor=extractors.build_label_extractor(
+            schema.LabelExtractor.from_dict(extractor)),
+        vocab=vocab.Vocabulary(TEXT_WORDS), seed=5,
+        max_caption_tokens=max_caption_tokens)
+    return got, want
+
+
+def _assert_same_text_batches(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys(), i
+        assert InputFields.image not in g
+        assert g[InputFields.image_id] == w[InputFields.image_id], i
+        for key in TEXT_KEYS:
+            assert g[key].dtype == w[key].dtype, (i, key)
+            np.testing.assert_array_equal(g[key], w[key],
+                                          err_msg="batch %d %s" % (i, key))
+        np.testing.assert_array_equal(g[InputFields.caption_strings],
+                                      w[InputFields.caption_strings])
+        assert g["concat_tokens"] == w["concat_tokens"]
+        assert g[InputFields.object_texts] == w[InputFields.object_texts]
+
+
+@pytest.mark.parametrize("records,max_tokens", [("text", 64), ("text", 6),
+                                                ("port_png", 8)])
+def test_text_batches_equal_jax(port_records, tmp_path, records, max_tokens):
+    """Text batches (decode_image: false) bit for bit, token ids included:
+    text-only records, and PNG records whose images are not decoded;
+    max_caption_tokens above and below the captions' 10 tokens."""
+    pattern, label_file = port_records
+    if records == "text":
+        pattern = synthetic.write_synthetic_dataset(
+            str(tmp_path / "text.record"), num_examples=14, seed=7,
+            classes=CLASSES, with_image=False)
+    got_pipe, want_pipe = _text_pipelines(pattern, label_file, max_tokens)
+    got, want = _take(got_pipe, 12), _take(want_pipe, 12)
+    _assert_same_text_batches(got, want)
+    ids = np.concatenate([b[InputFields.concat_caption_token_ids]
+                          for b in got])
+    assert ids.shape[1] == max_tokens
+    oov = len(TEXT_WORDS)
+    assert (ids == oov).any() and (ids < oov).any()
+    # One pass over the records drops the trailing partial batch.
+    got_pipe.options.is_training = want_pipe.options.is_training = False
+    one_pass = list(got_pipe)
+    assert len(one_pass) == 14 // 3
+    _assert_same_text_batches(one_pass, list(want_pipe))
+
+
+def test_text_batches_through_the_worker_process(port_records, tmp_path):
+    """A text batch holds no canvas: the worker passes it through as the
+    pipeline made it."""
+    _, label_file = port_records
+    pattern = synthetic.write_synthetic_dataset(
+        str(tmp_path / "text.record"), num_examples=14, seed=7,
+        classes=CLASSES, with_image=False)
+    got_pipe, want_pipe = _text_pipelines(pattern, label_file, 8)
+    it = pipeline.in_worker_process(got_pipe, "cpu")
+    try:
+        got = [next(it) for _ in range(6)]
+    finally:
+        it.close()
+    _assert_same_text_batches(got, _take(want_pipe, 6))
 
 
 def test_parse_example_equals_jax(port_records):
