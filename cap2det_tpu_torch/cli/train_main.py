@@ -7,8 +7,13 @@ Usage:
       --model_dir logs/coco17_extend_match \
       [--pretrained_checkpoint backbone.pt] [--device cuda]
 
-One process on one card; multi-host launch is not ported (ROADMAP.md
-queue 1 item 5).
+Data parallel, one process per card (``parallel/distributed.py``):
+
+  torchrun --nproc_per_node=N -m cap2det_tpu_torch.cli.train_main \
+      --pipeline_proto ... --model_dir ...
+
+The JAX launcher's JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+JAX_PROCESS_ID start it too.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import argparse
 import logging
 
 from cap2det_tpu_torch.config import schema
+from cap2det_tpu_torch.parallel import distributed
 from cap2det_tpu_torch.train import trainer
 
 
@@ -46,15 +52,21 @@ def main(argv=None):
                         help="cuda (the default) or cpu.")
     args = parser.parse_args(argv)
 
-    pipeline = load_pipeline_proto(args.pipeline_proto, args.model_dir)
-    trainer.train(
-        pipeline,
-        model_dir=args.model_dir,
-        max_steps=args.max_steps,
-        seed=args.seed,
-        pretrained_checkpoint=args.pretrained_checkpoint,
-        device=args.device,
-    )
+    # A no-op without a launcher's settings; else joins the process group
+    # and gives this rank's card.
+    device = distributed.maybe_initialize(device=args.device) or args.device
+    try:
+        pipeline = load_pipeline_proto(args.pipeline_proto, args.model_dir)
+        trainer.train(
+            pipeline,
+            model_dir=args.model_dir,
+            max_steps=args.max_steps,
+            seed=args.seed,
+            pretrained_checkpoint=args.pretrained_checkpoint,
+            device=device,
+        )
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ emits raw uint8 [B, H, W, 3] canvases: the JAX feed's space-to-depth
 packing is a TPU layout that the port leaves out. PNG decodes without
 Pillow (``data/png.py``); every other format needs Pillow.
 
-Not ported yet, and refused: photometric augmentation (ROADMAP.md queue
-1 item 6).
+Photometric augmentation (``data/augment.py``) runs before the flip, and
+only with the ``enable_photometric_augmentation`` opt-in: the reference's
+reader ignores those options, so without it they are refused.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from cap2det_tpu_torch.config import schema
-from cap2det_tpu_torch.data import png, tf_example, tfrecord
+from cap2det_tpu_torch.data import augment, png, tf_example, tfrecord
 from cap2det_tpu_torch.fields import InputFields, TFExampleFields
 from cap2det_tpu_torch.text import extractors as extractors_lib
 
@@ -299,14 +300,6 @@ def labels_for_examples(extractor, examples):
     return extractor.extract_labels(texts)
 
 
-def _has_photometric(options):
-    """True when any photometric probability is nonzero."""
-    return options is not None and any(
-        getattr(options, name) > 0
-        for name in ("random_brightness_prob", "random_contrast_prob",
-                     "random_hue_prob", "random_saturation_prob"))
-
-
 class InputPipeline:
     """Iterable over fixed-shape image batches (numpy arrays).
 
@@ -368,18 +361,15 @@ class InputPipeline:
                 "random_crop_prob is not supported by the cap2det reader "
                 "(the reference's v2 preprocess path is flip-only)"
             )
-        if _has_photometric(preprocess):
-            if not preprocess.enable_photometric_augmentation:
-                # The reference's reader would silently ignore these knobs.
-                raise ValueError(
-                    "photometric preprocess options are ignored by the "
-                    "reference's cap2det reader (flip-only v2 path); set "
-                    "enable_photometric_augmentation: true to opt in to "
-                    "this framework's extension"
-                )
-            raise NotImplementedError(
-                "photometric augmentation is not ported yet (ROADMAP.md "
-                "queue 1 item 6)")
+        if (augment.has_photometric(preprocess)
+                and not preprocess.enable_photometric_augmentation):
+            # The reference's reader would silently ignore these knobs.
+            raise ValueError(
+                "photometric preprocess options are ignored by the "
+                "reference's cap2det reader (flip-only v2 path); set "
+                "enable_photometric_augmentation: true to opt in to "
+                "this framework's extension"
+            )
 
         self._scales = list(options.batch_resize_scale_value) or [1.0]
         self._shard = None
@@ -499,13 +489,17 @@ class InputPipeline:
         return batch
 
     def _prep_example(self, task):
-        """Heavy per-example work: decode, flip, canvas fit, box
-        renormalization. All randomness was pre-drawn in the serial
+        """Heavy per-example work: decode, photometric, flip, canvas fit,
+        box renormalization. All randomness was pre-drawn in the serial
         pre-stage (task fields), so this runs on the parallel-map threads
         with deterministic output regardless of thread timing. The work is
         numpy and CPU tensors only: CUDA stays on the consumer's thread."""
         ex, (ch, cw) = task["ex"], task["canvas_hw"]
         image = decode_jpeg(ex["image_encoded"])
+        if task["photo_seed"] is not None:
+            image = augment.apply_photometric(
+                image, self.options.preprocess_options,
+                random.Random(task["photo_seed"]))
         flip = task["flip"]
         if flip:
             # A flip is a negative-stride view, which torch.as_tensor
@@ -582,13 +576,15 @@ class InputPipeline:
             return
 
         # Serial pre-stage: read image dims (header only — no pixel
-        # decode), assign bucket / per-batch scale / flip in stream order
-        # so all randomness is deterministic under `seed`, then fan the
-        # heavy decode+fit out to `map_num_parallel_calls` threads
-        # (order-preserving).
+        # decode), assign bucket / per-batch scale / flip / photometric
+        # seeds in stream order so all randomness is deterministic under
+        # `seed`, then fan the heavy decode+augment+fit out to
+        # `map_num_parallel_calls` threads (order-preserving).
         flip_prob = 0.0
         if opt.is_training and opt.preprocess_options is not None:
             flip_prob = opt.preprocess_options.random_flip_left_right_prob
+        photometric = (opt.is_training
+                       and augment.has_photometric(opt.preprocess_options))
         bucket_counts = {}
         bucket_scale = {}
 
@@ -631,6 +627,7 @@ class InputPipeline:
                     "key": key,
                     "canvas_hw": (ch, cw),
                     "flip": opt.is_training and rng.random() < flip_prob,
+                    "photo_seed": rng.getrandbits(64) if photometric else None,
                 }
 
         # Cap at the host's core count: with fewer cores than workers the

@@ -17,6 +17,7 @@ from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.fields import (Cap2DetPredictions, DetectionFields,
                                       InputFields)
 from cap2det_tpu_torch.models import frcnn, wsod
+from cap2det_tpu_torch.models.base import ModelBase
 from cap2det_tpu_torch.models.registry import register_model_class
 from cap2det_tpu_torch.ops import losses as loss_ops
 from cap2det_tpu_torch.ops import masked, nms
@@ -26,7 +27,7 @@ from cap2det_tpu_torch.text import extractors as extractors_lib
 FEATURE_DIM = 1024
 
 
-class Cap2DetModel:
+class Cap2DetModel(ModelBase):
     """Cap2Det on one device ("cuda" unless the caller asks for the CPU).
     Activations and conv weights run in ``compute_dtype``; the heads and
     losses run in float32. ``predictions`` reads the tree that ``prepare``

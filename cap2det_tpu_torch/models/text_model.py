@@ -19,6 +19,7 @@ import torch
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.fields import InputFields
+from cap2det_tpu_torch.models.base import ModelBase
 from cap2det_tpu_torch.models.registry import register_model_class
 from cap2det_tpu_torch.ops.losses import sigmoid_cross_entropy
 from cap2det_tpu_torch.text import extractors as extractors_lib
@@ -26,7 +27,7 @@ from cap2det_tpu_torch.text import extractors as extractors_lib
 FIELD_TEXT_LOSS = "text_cross_entropy_loss"
 
 
-class TextModel:
+class TextModel(ModelBase):
     non_trainable_paths = ("word_embedding",)
 
     def __init__(self, options: schema.TextModel, is_training=False,

@@ -11,10 +11,14 @@ small kernels and slows every step (PERF.md §5).
 A step: seed a generator from (seed, step) -> ``model.loss`` -> gradients
 of the trainable leaves only (frozen leaves have ``requires_grad=False``,
 so autograd never builds their cone: under a full first-stage freeze no
-ROI backward runs) -> the optimizer updates the params in place.
+ROI backward runs) -> in a process group, the gradients and losses
+averaged across the ranks -> the optimizer updates the params in place.
 
-One card, one process: the JAX trainer's mesh, multi-host and profiler
-server branches have no counterpart here (ROADMAP.md queue 1 item 5).
+Data parallelism is one process per card in a ``torch.distributed``
+group (``parallel/distributed.py``): the JAX trainer's multi-host mesh,
+and its single-process mesh over a host's n chips, are both
+``torchrun --nproc_per_node=n`` here. JAX's live profiler server
+(``profiler_port``) has no counterpart; ``profile_steps`` writes a trace.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline as pipeline_lib
 from cap2det_tpu_torch.models import registry
+from cap2det_tpu_torch.parallel import mesh as mesh_lib
 from cap2det_tpu_torch.train import checkpoint as ckpt_lib
 from cap2det_tpu_torch.train import metrics as metrics_lib
 from cap2det_tpu_torch.train import optimizers
@@ -77,19 +83,33 @@ def set_trainable(params, trainable_mask):
         leaf.requires_grad_(bool(mask[path]))
 
 
-def step_seed(seed, step):
+def step_seed(seed, step, rank=None):
     """The step's generator seed, a function of (seed, step) only, as
-    ``jax.random.fold_in(rng, step)`` is: reproducible across restarts."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    ``jax.random.fold_in(rng, step)`` is: reproducible across restarts.
+    With a `rank`, the rank is folded in as well, as JAX folds in the
+    data-axis index: each rank draws its own dropout."""
+    entropy = [seed, step] if rank is None else [seed, step, rank]
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
-def make_train_step(model, tx, train_config, trainable_mask=None):
+def make_train_step(model, tx, train_config, trainable_mask=None,
+                    process_group=None):
     """fn(state, batch, seed) -> (state, logs) for one training step.
 
     `batch` is ``model.device_batch`` of a host batch. The params are
     updated in place; logs stay tensors on the device until read.
+
+    With a `process_group` (the counterpart of JAX's ``pmean_axis``),
+    `batch` is this rank's slice of the global batch: the trainable
+    gradients, the total and the logged losses are averaged across the
+    ranks before the update, so every rank applies the same update. In a
+    group of more than one rank, the step seed also takes the rank. A
+    group of one keeps the no-group step's bits.
     """
     ema_decay = _ema_decay(train_config)
+    rank = None
+    if process_group is not None and mesh_lib.world_size(process_group) > 1:
+        rank = mesh_lib.rank(process_group)
 
     def train_step(state, batch, seed):
         params = state["params"]
@@ -99,21 +119,32 @@ def make_train_step(model, tx, train_config, trainable_mask=None):
                      for path, leaf in optimizers.flatten_params(params)
                      if leaf.requires_grad]
         generator = torch.Generator(device=model.device)
-        generator.manual_seed(step_seed(seed, state["step"]))
+        generator.manual_seed(step_seed(seed, state["step"], rank))
         total, loss_dict = model.loss(params, batch, generator=generator,
                                       is_training=True)
         grads = torch.autograd.grad(total, [leaf for _, leaf in trainable],
                                     allow_unused=True)
-        grads = {path: torch.zeros_like(leaf) if g is None else g
-                 for (path, leaf), g in zip(trainable, grads)}
-        opt_state = tx.apply(params, grads, state["opt_state"])
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for (_, leaf), g in zip(trainable, grads)]
+        total = total.detach()
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        if process_group is not None:
+            keys = list(loss_dict)
+            reduced = mesh_lib.all_reduce_mean(
+                grads + [total] + [loss_dict[k] for k in keys],
+                process_group)
+            grads, total = reduced[:len(grads)], reduced[len(grads)]
+            loss_dict = dict(zip(keys, reduced[len(grads) + 1:]))
+        opt_state = tx.apply(
+            params, {path: g for (path, _), g in zip(trainable, grads)},
+            state["opt_state"])
 
         new_state = dict(state, opt_state=opt_state, step=state["step"] + 1)
         if ema_decay is not None:
             new_state["ema"] = optimizers.ema_update(state["ema"], params,
                                                      ema_decay)
-        logs = {"loss/total_loss": total.detach()}
-        logs.update({"loss/" + k: v.detach() for k, v in loss_dict.items()})
+        logs = {"loss/total_loss": total}
+        logs.update({"loss/" + k: v for k, v in loss_dict.items()})
         return new_state, logs
 
     return train_step
@@ -164,6 +195,51 @@ def _device_prefetch(host_batches, place, timing, depth=2):
             it.close()
 
 
+def _pipeline_seed(reader, seed, group):
+    """The input pipeline's seed on this rank. Alone, `seed`. In a group,
+    the ranks must feed distinct slices of the global batch: the reader's
+    shard_indicator partitions the records when the ranks' numerators
+    differ (one pbtxt reused on every rank does not), and otherwise each
+    rank takes seed + 7919 x rank, which decorrelates shuffling and
+    augmentation but samples the same records."""
+    rank, world = mesh_lib.rank(group), mesh_lib.world_size(group)
+    if world == 1:
+        return seed
+    shard = reader.cap2det_reader.shard_indicator
+    if shard:
+        numers = mesh_lib.all_gather_ints(
+            [int(shard.split("/")[0])], group)[:, 0].tolist()
+        if len(set(numers)) == len(numers):
+            log.info("data parallel: per-rank data from shard_indicator %r",
+                     shard)
+            return seed
+        log.warning(
+            "shard_indicator %r numerators are not distinct across ranks "
+            "(%s) — not a data partition; falling back to per-rank seed "
+            "decorrelation", shard, numers)
+    pipe_seed = seed + 7919 * rank
+    log.warning(
+        "data-parallel training without a distinct train_reader."
+        "shard_indicator: decorrelating ranks by per-rank pipeline seed %d; "
+        "set shard_indicator: '%d/%d' for a disjoint data partition",
+        pipe_seed, rank, world)
+    return pipe_seed
+
+
+def _broadcast_state(state, group, device):
+    """Rank 0's params, optimizer slots, moving average, step and update
+    count on every rank, in place: the other ranks restored nothing."""
+    counters = torch.tensor([state["step"], state["opt_state"]["count"]],
+                            device=device)
+    tree = {"params": state["params"], "slots": state["opt_state"]["slots"],
+            "counters": counters}
+    if "ema" in state:
+        tree["ema"] = state["ema"]
+    mesh_lib.broadcast_params(tree, src=0, group=group)
+    state["step"], state["opt_state"]["count"] = (int(c) for c in
+                                                   counters.tolist())
+
+
 def _stop_profile(profiler, profile_dir, device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -202,19 +278,39 @@ def train(
       profile_steps: optional (start, stop) step pair; a torch.profiler
         trace of the steps between them goes to
         <model_dir>/profile/trace.json.
-      device: "cuda" (the default; raises without a card) or "cpu".
+      device: "cuda" (the default; raises without a card) or "cpu". In a
+        process group, the rank's device (``distributed.maybe_initialize``
+        returns it).
+
+    In a process group (``torch.distributed`` initialised by the caller,
+    who also destroys it), every rank runs this loop on its own card with
+    JAX's multi-process contract: the reader's batch_size is per rank, so
+    the global batch is batch_size x world; each rank feeds distinct data,
+    partitioned by the ranks' distinct shard_indicator numerators or else
+    decorrelated by a pipeline seed of seed + 7919 x rank; rank 0's state
+    (after a restore or a pretrained overlay) is broadcast once; each step
+    averages the gradients and losses across the ranks. Only rank 0 writes
+    checkpoints, metrics and a profile; the other ranks wait at the next
+    collective. Ranks may hold batches of different canvas buckets in one
+    step: only gradients, shaped as the params, are reduced. Every rank
+    must reach max_steps: a rank whose feed ends early leaves the others
+    waiting in the all-reduce until the group's timeout.
     """
     device = params_lib.resolve_device(device)
     model_dir = model_dir or pipeline_config.model_dir
     train_config = pipeline_config.train_config
     max_steps = max_steps or train_config.max_steps
     log_every = log_every or train_config.log_step_count_steps
+    group = dist.group.WORLD if dist.is_initialized() else None
+    world = mesh_lib.world_size(group)
+    chief = mesh_lib.rank(group) == 0
 
     model = registry.build(pipeline_config.model, is_training=True,
                            device=device)
     reader = pipeline_config.train_reader
-    pipe = pipeline_lib.build_input_pipeline(reader, seed=seed,
-                                             **model.pipeline_kwargs())
+    pipe = pipeline_lib.build_input_pipeline(
+        reader, seed=_pipeline_seed(reader, seed, group),
+        **model.pipeline_kwargs())
     state, tx, schedule, trainable_mask = TrainState.create(
         model, train_config, seed)
 
@@ -229,7 +325,7 @@ def train(
 
     manager = None
     writer = None
-    if model_dir:
+    if model_dir and chief:
         os.makedirs(model_dir, exist_ok=True)
         manager = ckpt_lib.CheckpointManager(
             model_dir, keep_max=train_config.keep_checkpoint_max)
@@ -238,9 +334,12 @@ def train(
             state = restored
             log.info("restored checkpoint at step %d", state["step"])
         writer = metrics_lib.MetricsWriter(model_dir)
+    if group is not None:
+        _broadcast_state(state, group, device)
 
-    train_step = make_train_step(model, tx, train_config, trainable_mask)
-    batch_size = reader.cap2det_reader.batch_size
+    train_step = make_train_step(model, tx, train_config, trainable_mask,
+                                 process_group=group)
+    batch_size = reader.cap2det_reader.batch_size * world
     step = state["step"]
     t_start = time.time()
     t_window, window_steps, window_examples = time.time(), 0, 0
@@ -256,7 +355,7 @@ def train(
             batch = next(batches, None)
             if batch is None:
                 break
-            if profile_steps is not None:
+            if profile_steps is not None and chief:
                 if not profiled and step == profile_steps[0]:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if device.type == "cuda":

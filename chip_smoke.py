@@ -83,7 +83,18 @@ Phases (any failure ends the run with a nonzero exit code):
      buckets, step medians, peak memory, the images labelled beyond an
      exact match, the extractor's labels on the card against the CPU's
      (every flip with its margin); then a few steps of
-     configs/coco17_word_vector_match.pbtxt.
+     configs/coco17_word_vector_match.pbtxt;
+ 15. data_parallel: coco17_extend_match at full width on two ranks of a
+     torch.distributed group on the one card (gloo), each a spawned
+     process: (a) one float32 step, dropout off, on each rank's half of a
+     seeded global batch of 4 against this process's step on the whole
+     batch (params, Adagrad accumulators, loss), launches per rank K1 1,
+     K4 3, K2 1, K5 2, K6 1, the kernels built by both ranks at once from
+     a clean directory, step times with and without the all-reduce and
+     its bytes; (b) a group of one in NCCL steps as no group, bit for
+     bit; (c) train() over train_loop's records on two ranks: launches
+     per step, step medians, checkpoints and metrics from rank 0 only,
+     peak memory.
 
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 (features [2, 76, 114, 576], P=500).
@@ -1309,7 +1320,8 @@ PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
             "maxpool_grad": 2, "avgpool_grad": 1}
 
 
-def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
+def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
+              device="cuda"):
     """trainer.train() on the card with a hook that records, per step, a
     CUDA event and the host clock at its end, the loop's wait on the
     input pipeline, its pinning and queuing of the batches' copies, the
@@ -1340,7 +1352,8 @@ def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None):
     start.record()
     t_start = time.perf_counter()
     state = trainer.train(cfg, model_dir=model_dir, max_steps=steps,
-                          hooks=[hook], profile_steps=profile_steps)
+                          hooks=[hook], profile_steps=profile_steps,
+                          device=device)
     torch.cuda.synchronize()
     return state, records, start, t_start, time.perf_counter() - t_start
 
@@ -2201,6 +2214,429 @@ def phase_text_cap2det(torch, directory, text_model_dir, emb_file):
     return launches
 
 
+DP_WORLD = 2
+DP_BATCH = 2  # per rank: the global batch is DP_WORLD x DP_BATCH
+DP_CANVAS = (1024, 1536)  # the coco17 fixed-batch step's canvas
+DP_TIMED = 4  # steps timed with the all-reduce, and as many without
+DP_TRAIN_STEPS = 16
+DP_TIMEOUT = 480.0  # seconds for a spawned group to finish
+# tests/test_torch_data_parallel.py's bounds (tests/test_trainer_spmd.py's).
+DP_PARAM_TOL = 1e-4
+DP_ACC_REL_TOL = 1e-3
+DP_LOSS_RTOL = 1e-5
+
+
+def dp_setup(torch, device, group):
+    """coco17_extend_match at full width in float32 with dropout off (so
+    that the ranks' step equals one process's on the global batch): the
+    model, its train config, a fresh state from SEED, and the step in
+    `group` (None: no group). Also the global batch of DP_WORLD x
+    DP_BATCH seeded 1024x1536 canvases, P=500, made alike in every
+    process."""
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.models import registry
+    from cap2det_tpu_torch.train import trainer
+    import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
+
+    cfg = schema.load_pipeline(os.path.join("configs",
+                                            "coco17_extend_match.pbtxt"))
+    cfg.model.cap2det_model.frcnn_options.dropout_keep_prob = 1.0
+    model = registry.build(cfg.model, is_training=True,
+                           compute_dtype=torch.float32, device=device)
+    state, opt, _, mask = trainer.TrainState.create(model, cfg.train_config,
+                                                    SEED)
+    step = trainer.make_train_step(model, opt, cfg.train_config, mask,
+                                   process_group=group)
+    host = train_batch(np.random.default_rng(SEED + 20), DP_WORLD * DP_BATCH,
+                       DP_CANVAS, TRAIN_P, model.num_classes,
+                       pad=TRAIN_P // 10)
+    return model, cfg, state, opt, mask, step, host
+
+
+def dp_rank_slice(host, rank):
+    return {k: v[rank * DP_BATCH:(rank + 1) * DP_BATCH]
+            for k, v in host.items()}
+
+
+def dp_trainable(state, mask):
+    """CPU copies of the trainable params and their Adagrad accumulators."""
+    from cap2det_tpu_torch.train import optimizers
+
+    flat_mask = dict(optimizers.flatten_params(mask))
+    return ({p: leaf.detach().cpu().clone() for p, leaf
+             in optimizers.flatten_params(state["params"]) if flat_mask[p]},
+            {p: s["sum_of_squares"].detach().cpu().clone()
+             for p, s in state["opt_state"]["slots"].items()})
+
+
+def dp_step_rank(device, build_root, out_dir):
+    """(a) One rank of two on the one card (gloo): the kernels built from
+    a clean directory by both ranks at once; one step on this rank's half
+    of the global batch, with its launches; then steps timed with and
+    without the all-reduce, and the all-reduce alone."""
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+
+    from cap2det_tpu_torch.kernels import build, roi_pool
+    from cap2det_tpu_torch.parallel import mesh as mesh_lib
+    from cap2det_tpu_torch.train import trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = mesh_lib.rank()
+    build.BUILD_ROOT = pathlib.Path(build_root)
+    dist.barrier()  # both ranks start building together
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+
+    group = dist.group.WORLD
+    model, cfg, state, opt, mask, step, host = dp_setup(torch, device, group)
+    batch = model.device_batch(dp_rank_slice(host, rank))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, logs = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    params, slots = dp_trainable(state, mask)
+    torch.save({"params": params, "slots": slots,
+                "loss": float(logs["loss/total_loss"])},
+               os.path.join(out_dir, "rank%d.pt" % rank))
+
+    alone = trainer.make_train_step(model, opt, cfg.train_config, mask)
+    times = {"with": [], "without": []}
+    for kind in ["with", "without"] + ["with", "without", "without",
+                                        "with"] * (DP_TIMED // 2):
+        fn = step if kind == "with" else alone
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, logs = fn(state, batch, SEED)
+        end.record()
+        torch.cuda.synchronize()
+        times[kind].append((start.elapsed_time(end),
+                            (time.perf_counter() - t0) * 1e3))
+    # The first of each kind is a warm-up.
+    times = {k: v[1:] for k, v in times.items()}
+    # What the step reduces: the trainable gradients, the total and the
+    # losses.
+    tensors = [leaf.to(device) for leaf in params.values()] + list(
+        logs.values())
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    reduce_ms = []
+    for _ in range(1 + DP_TIMED):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_lib.all_reduce_mean(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "device": str(device),
+                   "backend": dist.get_backend(), "launches": launches,
+                   "generic": roi_pool.generic_launches
+                   + roi_pool.grad_generic_launches,
+                   "build": {"built": build.build_info["built"],
+                             "seconds": build_s,
+                             "key": build.build_info["key"]},
+                   "step_ms": times, "all_reduce_bytes": nbytes,
+                   "all_reduce_ms": reduce_ms[1:],
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+
+
+def dp_nccl_rank(device, out_dir):
+    """(b) A group of one in NCCL: the step with the group equals the
+    no-group step bit for bit (the all-reduce sums over one rank and
+    nothing is divided). Deterministic algorithms, and a second no-group
+    step, rule out run-to-run differences of the step itself."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    results = []
+    for group in (None, dist.group.WORLD, None):
+        model, _, state, _, mask, step, host = dp_setup(torch, device, group)
+        reset_launch_counts()
+        state, logs = step(state, model.device_batch(dp_rank_slice(host, 0)),
+                           SEED)
+        torch.cuda.synchronize()
+        params, slots = dp_trainable(state, mask)
+        results.append({"params": params, "slots": slots,
+                        "loss": logs["loss/total_loss"].cpu(),
+                        "launches": launch_counts()})
+        del model, state
+    torch.save({"backend": dist.get_backend(), "results": results},
+               os.path.join(out_dir, "nccl.pt"))
+
+
+def dp_train_rank(device, pattern, model_dir, out_dir):
+    """(c) One rank of train() at configs/coco17_extend_match.pbtxt as
+    shipped over train_loop's records: spies count what it writes, a hook
+    its launches and step times."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.data import pipeline as pipeline_lib
+    from cap2det_tpu_torch.parallel import mesh as mesh_lib
+    from cap2det_tpu_torch.train import checkpoint as ckpt_lib
+    from cap2det_tpu_torch.train import metrics as metrics_lib
+    from cap2det_tpu_torch.train import optimizers, trainer
+
+    rank = mesh_lib.rank()
+    cfg = schema.load_pipeline(os.path.join("configs",
+                                            "coco17_extend_match.pbtxt"))
+    cfg.train_reader.cap2det_reader.input_pattern = [pattern]
+    cfg.train_config.save_checkpoints_steps = DP_TRAIN_STEPS // 2
+    cfg.train_config.log_step_count_steps = DP_TRAIN_STEPS // 4
+    writes = {"save": 0, "write": 0, "seed": None}
+    real = (ckpt_lib.CheckpointManager.save, metrics_lib.MetricsWriter.write,
+            pipeline_lib.build_input_pipeline)
+
+    def save(self, *a, **k):
+        writes["save"] += 1
+        return real[0](self, *a, **k)
+
+    def write(self, *a, **k):
+        writes["write"] += 1
+        return real[1](self, *a, **k)
+
+    def build_pipe(reader, seed=0, **k):
+        writes["seed"] = seed
+        return real[2](reader, seed=seed, **k)
+
+    ckpt_lib.CheckpointManager.save = save
+    metrics_lib.MetricsWriter.write = write
+    pipeline_lib.build_input_pipeline = build_pipe
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, records, start, t_start, wall = run_train(
+        torch, trainer, cfg, model_dir, DP_TRAIN_STEPS, device=device)
+    launches = launch_counts()
+    digest = hashlib.sha256()
+    for _, leaf in optimizers.flatten_params(state["params"]):
+        digest.update(leaf.detach().float().cpu().numpy().tobytes())
+    steps = []
+    for prev, r in zip([None] + records[:-1], records):
+        steps.append({"step": r["step"], "canvas": r["canvas"],
+                      "launches": r["launches"],
+                      "event_ms": (prev["event"] if prev else start)
+                      .elapsed_time(r["event"]),
+                      "host_s": r["host"] - (prev["host"] if prev
+                                             else t_start),
+                      "wait_s": r["wait"], "loss": float(r["loss"])})
+    with open(os.path.join(out_dir, "train%d.json" % rank), "w") as f:
+        json.dump(dict(writes, rank=rank, backend=dist.get_backend(),
+                       launches=launches, steps=steps, wall_s=wall,
+                       params=digest.hexdigest(),
+                       peak_bytes=torch.cuda.max_memory_allocated()), f)
+
+
+def phase_data_parallel(torch):
+    """data_parallel: coco17_extend_match at full width on DP_WORLD ranks
+    of one process group on the one card (gloo: NCCL refuses two ranks on
+    one device), each a spawned process:
+      (a) one float32 step, dropout off, on each rank's half of a seeded
+          global batch of DP_WORLD x DP_BATCH (P=500), against one step of
+          this process on the whole batch: params within DP_PARAM_TOL,
+          Adagrad accumulators within DP_ACC_REL_TOL relative, loss within
+          DP_LOSS_RTOL, both ranks' params bit for bit; launches per rank
+          K1 1, K4 3, K2 1, K5 2, K6 1 (counts set to 0 just before); the
+          kernels built by both ranks at once into a clean directory; step
+          times on CUDA events with and without the all-reduce, the
+          all-reduce's bytes and time; peak memory;
+      (b) a group of one in NCCL: its step equals the no-group step bit
+          for bit;
+      (c) train() over train_loop's records at the shipped config on two
+          ranks: launches per step on each rank, step medians, only rank
+          0 saving checkpoints and writing metrics, the ranks' params
+          equal at the end, peak memory.
+    Nothing falls back to one process, to the CPU or to a plain kernel."""
+    import tempfile
+
+    from cap2det_tpu_torch.parallel import distributed
+    from cap2det_tpu_torch.train import checkpoint as ckpt_lib
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        # (a)
+        t0 = time.perf_counter()
+        distributed.spawn(dp_step_rank, DP_WORLD, args=(
+            os.path.join(tmp, "build"), tmp), device="cuda",
+            timeout=DP_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        got = [torch.load(os.path.join(tmp, "rank%d.pt" % r),
+                          weights_only=True) for r in range(DP_WORLD)]
+        for r, info in enumerate(ranks):
+            if info["launches"] != PER_STEP or info["generic"]:
+                raise AssertionError("data_parallel: rank %d launched %s "
+                                     "(generic K1/K2 %d), expected %s" % (
+                                         r, info["launches"],
+                                         info["generic"], PER_STEP))
+            if info["backend"] != "gloo" or info["device"] != "cuda:0":
+                raise AssertionError("data_parallel: rank %d on %s %s" % (
+                    r, info["backend"], info["device"]))
+        if sum(info["build"]["built"] for info in ranks) < 1:
+            raise AssertionError("data_parallel: no rank built the kernels")
+        for part in ("params", "slots"):
+            if not all(torch.equal(v, got[0][part][k])
+                       for k, v in got[1][part].items()):
+                raise AssertionError("data_parallel: the ranks' %s differ"
+                                     % part)
+        if got[1]["loss"] != got[0]["loss"]:
+            raise AssertionError("data_parallel: the ranks' losses differ")
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model, _, state, _, mask, step, host = dp_setup(torch, "cuda", None)
+        state, logs = step(state, model.device_batch(host), SEED)
+        want_params, want_slots = dp_trainable(state, mask)
+        want_loss = float(logs["loss/total_loss"])
+        del model, state, step
+        torch.cuda.empty_cache()
+        d_params = max(float((got[0]["params"][k].double() - v.double())
+                             .abs().max()) for k, v in want_params.items())
+        acc_rel = max(float(torch.linalg.vector_norm(
+            got[0]["slots"][k].double() - v.double())
+            / (torch.linalg.vector_norm(v.double()) + 1e-12))
+            for k, v in want_slots.items())
+        loss_rel = abs(got[0]["loss"] - want_loss) / abs(want_loss)
+        log("data_parallel: (a) %d gloo ranks on cuda:0, %d trainable "
+            "leaves: max|dparam| %r (bound %g), accumulators' relative error"
+            " %r (bound %g), loss %r on the ranks against %r in one process "
+            "(relative %r, bound %g)" % (
+                DP_WORLD, len(want_params), d_params, DP_PARAM_TOL, acc_rel,
+                DP_ACC_REL_TOL, got[0]["loss"], want_loss, loss_rel,
+                DP_LOSS_RTOL))
+        if not (d_params < DP_PARAM_TOL and acc_rel < DP_ACC_REL_TOL
+                and loss_rel < DP_LOSS_RTOL):
+            raise AssertionError("data_parallel: the ranks' step is not one "
+                                 "process's step on the global batch")
+        for info in ranks:
+            log("data_parallel: (a) rank %d: " % info["rank"] + json.dumps({
+                "launches": info["launches"], "build": info["build"],
+                "median_step_ms_with_all_reduce": float(np.median(
+                    [e for e, _ in info["step_ms"]["with"]])),
+                "median_step_ms_without": float(np.median(
+                    [e for e, _ in info["step_ms"]["without"]])),
+                "step_ms_events_host": info["step_ms"],
+                "all_reduce_bytes": info["all_reduce_bytes"],
+                "median_all_reduce_ms": float(np.median(
+                    info["all_reduce_ms"])),
+                "all_reduce_ms": info["all_reduce_ms"],
+                "peak_bytes": info["peak_bytes"]}))
+        log("data_parallel: (a) the group's spawn to join %.1f s" % spawn_s)
+
+        # (b)
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "nccl"))
+        distributed.spawn(dp_nccl_rank, 1, args=(os.path.join(tmp, "nccl"),),
+                          device="cuda", timeout=DP_TIMEOUT)
+        nccl = torch.load(os.path.join(tmp, "nccl", "nccl.pt"),
+                          weights_only=True)
+        plain, grouped, again = nccl["results"]
+
+        def same(x, y):
+            return (torch.equal(x["loss"], y["loss"]) and all(
+                torch.equal(v, y[part][k]) for part in ("params", "slots")
+                for k, v in x[part].items()))
+
+        if nccl["backend"] != "nccl" or not same(plain, again):
+            raise AssertionError("data_parallel: (b) backend %s; the no-group"
+                                 " step repeats its bits: %s" % (
+                                     nccl["backend"], same(plain, again)))
+        if not same(grouped, plain) or grouped["launches"] != PER_STEP:
+            raise AssertionError("data_parallel: (b) a group of one in NCCL "
+                                 "changed the step's bits (launches %s)"
+                                 % grouped["launches"])
+        log("data_parallel: (b) a group of one in NCCL gives the no-group "
+            "step's loss %r, %d params and %d accumulators bit for bit "
+            "(%.1f s)" % (float(grouped["loss"]), len(grouped["params"]),
+                          len(grouped["slots"]), time.perf_counter() - t0))
+
+        # (c)
+        t0 = time.perf_counter()
+        pattern = write_train_records(tmp, 8, (480, 640), SEED + 9)
+        model_dir = os.path.join(tmp, "model")
+        distributed.spawn(dp_train_rank, DP_WORLD, args=(
+            pattern, model_dir, tmp), device="cuda", timeout=DP_TIMEOUT)
+        trains = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, "train%d.json" % r)) as f:
+                trains.append(json.load(f))
+        for info in trains:
+            bad = [s["step"] for s in info["steps"]
+                   if s["launches"] != PER_STEP]
+            if bad or len(info["steps"]) != DP_TRAIN_STEPS:
+                raise AssertionError("data_parallel: (c) rank %d launched "
+                                     "other than %s at steps %s" % (
+                                         info["rank"], PER_STEP, bad))
+        saved = [s for s, _ in ckpt_lib.list_checkpoints(model_dir)]
+        with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        if (trains[0]["save"] < 1 or trains[0]["write"] < 1
+                or any(t["save"] or t["write"] for t in trains[1:])
+                or saved != [DP_TRAIN_STEPS // 2, DP_TRAIN_STEPS]
+                or logged != [DP_TRAIN_STEPS * k // 4 for k in (1, 2, 3, 4)]):
+            raise AssertionError("data_parallel: (c) saves %s, metric writes"
+                                 " %s, checkpoints %s, logged steps %s" % (
+                                     [t["save"] for t in trains],
+                                     [t["write"] for t in trains], saved,
+                                     logged))
+        if len({t["params"] for t in trains}) != 1 or len(
+                {json.dumps([s["loss"] for s in t["steps"]])
+                 for t in trains}) != 1:
+            raise AssertionError("data_parallel: (c) the ranks' params or "
+                                 "losses differ")
+        if [t["seed"] for t in trains] != [7919 * r for r in range(DP_WORLD)]:
+            raise AssertionError("data_parallel: (c) pipeline seeds %s"
+                                 % [t["seed"] for t in trains])
+        for info in trains:
+            # Steps on a canvas this rank has seen before; a rank's step
+            # also waits for the other rank's in the all-reduce.
+            seen, steady = set(), []
+            for s in info["steps"]:
+                if tuple(s["canvas"]) in seen:
+                    steady.append(s)
+                seen.add(tuple(s["canvas"]))
+            log("data_parallel: (c) rank %d: " % info["rank"] + json.dumps({
+                "saves": info["save"], "metric_writes": info["write"],
+                "pipeline_seed": info["seed"], "launches": info["launches"],
+                "canvases": [s["canvas"] for s in info["steps"]],
+                "first_step_s": info["steps"][0]["host_s"],
+                "median_event_ms": float(np.median(
+                    [s["event_ms"] for s in steady])),
+                "median_host_s": float(np.median(
+                    [s["host_s"] for s in steady])),
+                "median_wait_s": float(np.median(
+                    [s["wait_s"] for s in steady])),
+                "steady_steps": len(steady),
+                "event_ms": [s["event_ms"] for s in info["steps"]],
+                "peak_bytes": info["peak_bytes"], "wall_s": info["wall_s"]}))
+        log("data_parallel: (c) %d steps on %d gloo ranks, checkpoints %s "
+            "and metrics at steps %s from rank 0 only, the ranks' params "
+            "equal; losses %s (%.1f s)" % (
+                DP_TRAIN_STEPS, DP_WORLD, saved, logged,
+                json.dumps([s["loss"] for s in trains[0]["steps"]]),
+                time.perf_counter() - t0))
+
+
 def main(argv):
     import torch
 
@@ -2255,6 +2691,8 @@ def main(argv):
         torch.cuda.empty_cache()
         text_launches = phase_text_cap2det(torch, tmp, text_model_dir,
                                            emb_file)
+    torch.cuda.empty_cache()
+    phase_data_parallel(torch)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
     log("chip_smoke: the eval daemon's launches (two checkpoints) %s"
         % json.dumps(eval_launches))

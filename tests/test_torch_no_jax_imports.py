@@ -1,7 +1,7 @@
-"""The port imports neither JAX nor the JAX package, nor nltk (the
-machine with the card has none; the port keeps its own Treebank rules):
-an AST walk over every module of ``cap2det_tpu_torch/`` and over
-``chip_smoke.py``."""
+"""The port imports neither JAX nor the JAX package, nor nltk nor cv2
+(the machine with the card has none; the port keeps its own Treebank
+rules and its own RGB<->HSV): an AST walk over every module of
+``cap2det_tpu_torch/`` and over ``chip_smoke.py``."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "orbax", "cap2det_tpu", "nltk")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "cap2det_tpu", "nltk", "cv2")
 SOURCES = sorted((ROOT / "cap2det_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -44,8 +44,10 @@ def test_the_guard_catches_each_form():
               "import orbax.checkpoint\nfrom cap2det_tpu.data import y\n"
               "import cap2det_tpu\ndef f():\n    from jax import lax\n"
               "import cap2det_tpu_torch.data\nfrom . import z\n"
-              "from nltk.tokenize import TreebankWordTokenizer\n")
+              "from nltk.tokenize import TreebankWordTokenizer\n"
+              "import cv2\n")
     assert forbidden_imports(source) == [
         (1, "jax"), (2, "jax.numpy"), (3, "jaxlib"), (4, "orbax.checkpoint"),
         (5, "cap2det_tpu.data"), (6, "cap2det_tpu"), (11, "nltk.tokenize"),
+        (12, "cv2"),
         (8, "jax")]  # ast.walk: the function's body after the top level
