@@ -110,11 +110,28 @@ def extract_features(prepared, images, proposals, options: schema.FRCNN,
     return pooled.reshape(batch, num_proposals, -1)
 
 
+def _overlay(dst, src):
+    """`dst` with `src`'s leaves put in, key by key: a key `src` lacks
+    keeps `dst`'s value."""
+    if not isinstance(src, dict):
+        return src
+    out = dict(dst) if isinstance(dst, dict) else {}
+    for key, value in src.items():
+        out[key] = _overlay(out.get(key), value)
+    return out
+
+
 def load_pretrained(params, converted_checkpoint):
     """Overlays converted ImageNet InceptionV2 weights onto both stages by
     layer name: the stem + Mixed_3*/4* go to the first stage, Mixed_5* to
     the second. ``converted_checkpoint`` is an {'InceptionV2': {...}} tree
-    of port tensors (``params.from_jax_numpy`` of the converter's tree)."""
+    of port tensors (``params.from_jax_numpy`` of the converter's tree).
+
+    Each layer is merged leaf by leaf, not replaced whole: a converted
+    checkpoint holds no entry for a pool branch's empty block
+    (``Mixed_4a/Branch_2``), which the forward pass looks up, so that
+    block is kept from ``params``. (The JAX package's overlay replaces the
+    layer and loses it.)"""
     src = converted_checkpoint["InceptionV2"]
     out = {k: dict(v) for k, v in params.items()}
     for scope, names in ((FIRST_SCOPE, FIRST_LAYERS),
@@ -122,6 +139,6 @@ def load_pretrained(params, converted_checkpoint):
         dst = dict(out[scope]["InceptionV2"])
         for name in names:
             if name in src:
-                dst[name] = src[name]
+                dst[name] = _overlay(dst.get(name), src[name])
         out[scope] = {"InceptionV2": dst}
     return out

@@ -96,6 +96,21 @@ Phases (any failure ends the run with a nonzero exit code):
      per step, step medians, checkpoints and metrics from rank 0 only,
      peak memory.
 
+ 16. dataset_build: the README's quick start from cap2det_tpu_torch
+     alone: 12 seeded 480x640 rich scenes as JPEG
+     (tools/make_rich_synthetic_dataset.py) in a COCO layout naming COCO
+     classes; selective search in two processes
+     (tools/create_selective_search_data.py over the host C++ library
+     built from csrc/host/), one image run again for the same bytes,
+     seconds per image on the host, proposals and recall@0.5 of the top
+     500 and 2000; COCO TFRecords in 2 shards read back; the vocabulary
+     over a stand-in GloVe file; the passthrough backbone; the committed
+     TensorFlow V1 and V2 fixtures converted with no tensorflow imported;
+     train() at configs/coco17_extend_match.pbtxt for 12 steps over those
+     records from the passthrough backbone (launches per step K1 1, K4 3,
+     K2 1, K5 2, K6 1, step medians, peak memory); one COCO evaluation of
+     its last checkpoint.
+
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 (features [2, 76, 114, 576], P=500).
 
@@ -1321,7 +1336,7 @@ PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
 
 
 def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
-              device="cuda"):
+              device="cuda", pretrained_checkpoint=None):
     """trainer.train() on the card with a hook that records, per step, a
     CUDA event and the host clock at its end, the loop's wait on the
     input pipeline, its pinning and queuing of the batches' copies, the
@@ -1353,7 +1368,8 @@ def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
     t_start = time.perf_counter()
     state = trainer.train(cfg, model_dir=model_dir, max_steps=steps,
                           hooks=[hook], profile_steps=profile_steps,
-                          device=device)
+                          device=device,
+                          pretrained_checkpoint=pretrained_checkpoint)
     torch.cuda.synchronize()
     return state, records, start, t_start, time.perf_counter() - t_start
 
@@ -2214,6 +2230,360 @@ def phase_text_cap2det(torch, directory, text_model_dir, emb_file):
     return launches
 
 
+DS_IMAGES = 12
+DS_HW = (480, 640)  # the rich scenes' height and width
+DS_STEPS = 12
+DS_SS_PROCESSES = 2
+DS_GLOVE_DIMS = 300
+DS_FIXTURES = os.path.join("tests", "data_torch", "tf_checkpoint")
+
+
+def _iou_matrix(a, b):
+    """[len(a), len(b)] IoU of normalized [ymin, xmin, ymax, xmax] boxes."""
+    a, b = np.asarray(a, np.float64)[:, None], np.asarray(b, np.float64)[None]
+    ih = np.clip(np.minimum(a[..., 2], b[..., 2])
+                 - np.maximum(a[..., 0], b[..., 0]), 0, None)
+    iw = np.clip(np.minimum(a[..., 3], b[..., 3])
+                 - np.maximum(a[..., 1], b[..., 1]), 0, None)
+    inter = ih * iw
+    area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+    return inter / np.maximum(area(a) + area(b) - inter, 1e-12)
+
+
+def flat_leaves(tree, prefix=""):
+    """[(path, leaf)] of a nested dict, in sorted key order."""
+    out = []
+    for key, value in sorted(tree.items()):
+        if isinstance(value, dict):
+            out += flat_leaves(value, prefix + key + "/")
+        else:
+            out.append((prefix + key, value))
+    return out
+
+
+def host_cpu():
+    """The host's CPU as /proc/cpuinfo names it (its model name, else its
+    vendor, family and model numbers), its architecture and its logical
+    core count."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block only
+                key, _, value = line.partition(":")
+                info[key.strip().lower()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name") or " ".join(
+        "%s %s" % (k, info[k]) for k in ("vendor_id", "cpu family", "model",
+                                          "cpu mhz") if k in info)
+    return "%s (%s)" % (name or "unknown", platform.machine()), os.cpu_count()
+
+
+def write_coco_layout(directory, scenes, classes):
+    """The rich scenes as a COCO split: <dir>/train2017/%012d.jpg (image
+    id i + 1), captions JSON (two captions each, naming the scene's
+    objects by COCO class name) and instances JSON (pixel boxes). Returns
+    (image dir, captions file, instances file, {file stem: gt boxes})."""
+    import shutil
+
+    from cap2det_tpu_torch.tools import make_rich_synthetic_dataset as rich
+
+    img_dir = os.path.join(directory, "train2017")
+    os.makedirs(img_dir)
+    h, w = DS_HW
+    names = {cls: classes[i] for i, cls in enumerate(rich.CLASSES)}
+    images, caps, insts, gt = [], [], [], {}
+    for i, row in enumerate(scenes):
+        image_id, file_name = i + 1, "%012d.jpg" % (i + 1)
+        shutil.copy(os.path.join(directory, "rich", "images",
+                                 row["image_id"] + ".jpg"),
+                    os.path.join(img_dir, file_name))
+        images.append({"id": image_id, "file_name": file_name, "height": h,
+                       "width": w})
+        objects = [names[c] for c in row["classes"]]
+        caps.append({"image_id": image_id, "id": 2 * i, "caption":
+                     "A photo of a %s." % " and a ".join(objects)})
+        caps.append({"image_id": image_id, "id": 2 * i + 1, "caption":
+                     "There is a %s next to the background" % objects[-1]})
+        for j, (box, name) in enumerate(zip(row["boxes"], objects)):
+            y0, x0, y1, x1 = box
+            insts.append({"image_id": image_id, "id": 100 * image_id + j,
+                          "category_id": classes.index(name) + 1,
+                          "bbox": [x0 * w, y0 * h, (x1 - x0) * w,
+                                   (y1 - y0) * h]})
+        gt[file_name[:-4]] = np.asarray(row["boxes"], np.float32)
+    categories = [{"id": k + 1, "name": c} for k, c in enumerate(classes)]
+    cap_file = os.path.join(directory, "captions_train2017.json")
+    inst_file = os.path.join(directory, "instances_train2017.json")
+    with open(cap_file, "w") as f:
+        json.dump({"images": images, "annotations": caps}, f)
+    with open(inst_file, "w") as f:
+        json.dump({"images": images, "annotations": insts,
+                   "categories": categories}, f)
+    return img_dir, cap_file, inst_file, gt
+
+
+def write_stand_in_glove(path, words, seed):
+    """A GloVe-format text file: each word and DS_GLOVE_DIMS seeded
+    values, plus a multi-token key as glove.840B has."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for word in list(words) + [". . ."]:
+            f.write(word + " " + " ".join(
+                "%.5f" % v for v in rng.normal(0, 0.4, DS_GLOVE_DIMS)) + "\n")
+
+
+def phase_dataset_build(torch):
+    """The README's quick start from cap2det_tpu_torch alone, at the full
+    width of configs/coco17_extend_match.pbtxt: seeded rich scenes as
+    JPEG (make_rich_synthetic_dataset), a COCO layout naming COCO
+    classes, selective search in DS_SS_PROCESSES processes
+    (create_selective_search_data, the host C++ library built from the
+    checkout), COCO TFRecords (create_coco_tf_record, 2 shards), the
+    vocabulary over a stand-in GloVe file (create_vocab), the passthrough
+    backbone (make_passthrough_checkpoint) and the committed TensorFlow V1
+    and V2 fixtures converted without TensorFlow (convert_tf_checkpoint),
+    then train() over the records from the passthrough backbone (launches
+    per step K1 1, K4 3, K2 1, K5 2, K6 1; counts set to 0 just before)
+    and one COCO evaluation of its last checkpoint. Returns the
+    launches of that train()."""
+    import glob
+    import importlib.util
+    import io
+    import tempfile
+
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.data import pipeline as pipeline_lib
+    from cap2det_tpu_torch.data import tfrecord
+    from cap2det_tpu_torch.eval import evaluator
+    from cap2det_tpu_torch.kernels import build
+    from cap2det_tpu_torch.text import vocab
+    from cap2det_tpu_torch.tools import convert_tf_checkpoint
+    from cap2det_tpu_torch.tools import create_coco_tf_record
+    from cap2det_tpu_torch.tools import create_selective_search_data as ss
+    from cap2det_tpu_torch.tools import create_vocab
+    from cap2det_tpu_torch.tools import make_passthrough_checkpoint
+    from cap2det_tpu_torch.tools import make_rich_synthetic_dataset as rich
+    from cap2det_tpu_torch.train import trainer
+
+    cpu, cores = host_cpu()
+    log("dataset_build: host CPU %s, %d logical cores" % (cpu, cores))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_") as tmp:
+        # 1. Scenes, then the COCO layout over them.
+        t0 = time.perf_counter()
+        rich.main(["--phase", "images", "--out", os.path.join(tmp, "rich"),
+                   "--num_images", str(DS_IMAGES), "--height",
+                   str(DS_HW[0]), "--width", str(DS_HW[1]), "--seed",
+                   str(SEED + 30)])
+        with open(os.path.join(tmp, "rich", "gt.jsonl")) as f:
+            scenes = [json.loads(line) for line in f if line.strip()]
+        classes, _ = vocab.load_synonym_table(
+            os.path.join("data", "coco_label_synonyms.txt"))
+        img_dir, cap_file, inst_file, gt = write_coco_layout(
+            tmp, scenes, [c for c in classes if " " not in c])
+        log("dataset_build: %d JPEG scenes %s and the COCO layout in %.2f s"
+            % (len(scenes), DS_HW, time.perf_counter() - t0))
+
+        # 2. Selective search, the processes started together.
+        ss_dir = os.path.join(tmp, "ss_npy")
+        t0 = time.perf_counter()
+        build.host_library()  # built once here; the processes reuse it
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m",
+             "cap2det_tpu_torch.tools.create_selective_search_data",
+             "--image_dir", img_dir, "--output_dir", ss_dir,
+             "--process_indicator", "%d/%d" % (k, DS_SS_PROCESSES)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in range(DS_SS_PROCESSES)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ss_wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError("dataset_build: selective search failed:\n"
+                                 + "\n".join(outs))
+        npys = sorted(glob.glob(os.path.join(ss_dir, "*.npy")))
+        if len(npys) != len(scenes):
+            raise AssertionError("dataset_build: %d proposal files for %d "
+                                 "images" % (len(npys), len(scenes)))
+        # One image again in this process: the same bytes, and its time.
+        per_image = []
+        for npy in npys[:2]:
+            stem = os.path.basename(npy)[:-4]
+            with open(os.path.join(img_dir, stem + ".jpg"), "rb") as f:
+                image = ss.decode_rgb(f.read())
+            t1 = time.perf_counter()
+            boxes = ss.extract_for_image(image)
+            per_image.append(time.perf_counter() - t1)
+            buf = io.BytesIO()
+            np.save(buf, boxes.astype(np.float32))
+            with open(npy, "rb") as f:
+                if f.read() != buf.getvalue():
+                    raise AssertionError("dataset_build: a second run of %s "
+                                         "gave other bytes" % stem)
+        counts, r500, r2000 = [], [], []
+        for npy in npys:
+            props = np.load(npy)
+            want = gt[os.path.basename(npy)[:-4]]
+            if not (props.ndim == 2 and props.shape[1] == 4 and len(props)
+                    and np.isfinite(props).all() and props.min() >= 0
+                    and props.max() <= 1):
+                raise AssertionError("dataset_build: bad proposals in %s"
+                                     % npy)
+            counts.append(len(props))
+            for top, out in ((500, r500), (2000, r2000)):
+                iou = _iou_matrix(want, props[:top])
+                out.append(float((iou.max(axis=1) >= 0.5).mean()))
+        log("dataset_build: selective search: " + json.dumps({
+            "images": len(npys), "processes": DS_SS_PROCESSES,
+            "host_library_build_s": build_s, "wall_s": ss_wall,
+            "images_per_s": len(npys) / ss_wall,
+            "one_process_s_per_image": per_image,
+            "proposals_per_image": {"min": min(counts), "max": max(counts),
+                                    "mean": float(np.mean(counts))},
+            "recall_at_0.5": {"top500": float(np.mean(r500)),
+                              "top2000": float(np.mean(r2000))},
+            "host_cpu": cpu, "cores": cores}))
+        if np.mean(r2000) < 0.5:
+            raise AssertionError("dataset_build: recall@0.5 of the top 2000 "
+                                 "%.3f" % np.mean(r2000))
+
+        # 3. Records, read back.
+        t0 = time.perf_counter()
+        records = os.path.join(tmp, "records", "coco17_train.record")
+        os.makedirs(os.path.dirname(records))
+        n = create_coco_tf_record.main([
+            "--image_dir", img_dir, "--caption_annotations_file", cap_file,
+            "--instance_annotations_file", inst_file,
+            "--proposal_data_path", ss_dir, "--output_path", records,
+            "--num_shards", "2"])
+        rec_s = time.perf_counter() - t0
+        shards = sorted(glob.glob(records + "-*"))
+        parsed = [pipeline_lib.parse_example(r) for s in shards
+                  for r in tfrecord.read_records(s, verify_crc=True)]
+        if n != len(scenes) or len(shards) != 2 or len(parsed) != n or any(
+                len(e["proposals"]) != min(c, 2000) or not e["captions"]
+                or not len(e["object_boxes"])
+                for e, c in zip(sorted(parsed,
+                                       key=lambda e: int(e["image_id"])),
+                                counts)):
+            raise AssertionError("dataset_build: the records do not hold "
+                                 "what went in")
+        log("dataset_build: %d records in %d shards in %.3f s (%.1f records "
+            "per s, %d bytes)" % (n, len(shards), rec_s, n / rec_s,
+                                  sum(os.path.getsize(s) for s in shards)))
+
+        # 4. Vocabulary over a stand-in GloVe file.
+        with open(cap_file) as f:
+            words = sorted({t for a in json.load(f)["annotations"]
+                            for t in create_vocab.tokenize_caption(
+                                a["caption"])})
+        glove = os.path.join(tmp, "glove.stand_in.300d.txt")
+        write_stand_in_glove(glove, words[:-3], SEED + 31)
+        vocab_file = os.path.join(tmp, "coco_open_vocab.txt")
+        emb_file = os.path.join(tmp, "coco_open_vocab_300d.npy")
+        kept, emb = create_vocab.main([
+            "--caption_annotations_file", cap_file, "--glove_file", glove,
+            "--output_vocabulary_file", vocab_file,
+            "--output_vocabulary_word_embedding_file", emb_file,
+            "--min_word_freq", "2"])
+        if not kept or np.load(emb_file).shape != (len(kept),
+                                                   DS_GLOVE_DIMS):
+            raise AssertionError("dataset_build: vocabulary %d words, "
+                                 "table %s" % (len(kept),
+                                               np.load(emb_file).shape))
+        log("dataset_build: vocabulary of %d words (of %d caption tokens), "
+            "table %s" % (len(kept), len(words), np.load(emb_file).shape))
+
+        # 5. The passthrough backbone; the TensorFlow fixtures converted.
+        t0 = time.perf_counter()
+        tf_before = {m for m in sys.modules if m.split(".")[0] == "tensorflow"}
+        passthrough = os.path.join(tmp, "passthrough.pt")
+        make_passthrough_checkpoint.write(passthrough, seed=SEED)
+        expected = dict(np.load(os.path.join(DS_FIXTURES, "expected.npz")))
+        want = convert_tf_checkpoint.variables_to_tree(expected)
+        for fmt in ("v1", "v2"):
+            got = convert_tf_checkpoint.convert(
+                os.path.join(DS_FIXTURES, fmt, "inception_v2.ckpt"),
+                os.path.join(tmp, "converted_%s.pt" % fmt))
+            got, want_leaves = flat_leaves(got), flat_leaves(want)
+            if [k for k, _ in got] != [k for k, _ in want_leaves] or not all(
+                    a.dtype == b.dtype and np.array_equal(a, b)
+                    for (_, a), (_, b) in zip(got, want_leaves)):
+                raise AssertionError("dataset_build: %s fixture converted "
+                                     "to another tree" % fmt)
+        if {m for m in sys.modules if m.split(".")[0] == "tensorflow"} != (
+                tf_before):
+            raise AssertionError("dataset_build: the conversion imported "
+                                 "tensorflow")
+        log("dataset_build: passthrough backbone and both TensorFlow "
+            "fixtures converted in %.2f s; no tensorflow imported (%s on "
+            "this machine)" % (time.perf_counter() - t0, "installed"
+                               if importlib.util.find_spec("tensorflow")
+                               else "not installed"))
+
+        # 6. train() over the records from the passthrough backbone.
+        cfg = schema.load_pipeline(os.path.join("configs",
+                                                "coco17_extend_match.pbtxt"))
+        cfg.train_reader.cap2det_reader.input_pattern = [records + "*"]
+        cfg.eval_reader.cap2det_reader.input_pattern = [records + "*"]
+        cfg.train_config.log_step_count_steps = 4
+        model_dir = os.path.join(tmp, "model")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state, steps, start, t_start, wall = run_train(
+            torch, trainer, cfg, model_dir, DS_STEPS,
+            pretrained_checkpoint=passthrough)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        bad = [r for r in steps if r["launches"] != PER_STEP]
+        losses = [float(r["loss"]) for r in steps]
+        if bad or len(steps) != DS_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError("dataset_build: steps %s, launches %s" % (
+                [r["step"] for r in steps], [r["launches"] for r in bad]))
+        medians = report_steps("from passthrough", steps, start, t_start,
+                               cfg.train_config, phase="dataset_build")
+        log("dataset_build: train(): %d steps in %.2f s from the "
+            "passthrough backbone; launches %s (per step %s); losses %s; "
+            "peak memory %d bytes" % (DS_STEPS, wall, json.dumps(launches),
+                                      json.dumps(PER_STEP),
+                                      json.dumps(losses), peak))
+        del state
+
+        # 7. One COCO evaluation of the last checkpoint.
+        t0 = time.perf_counter()
+        best = evaluator.continuous_evaluation(
+            cfg, model_dir=model_dir, max_eval_examples=len(scenes),
+            max_idle_polls=0, evaluator_kind="coco", device="cuda")
+        with open(os.path.join(model_dir, "eval_metrics.jsonl")) as f:
+            row = json.loads(f.readlines()[-1])
+        coco_map = [row["iter%d/DetectionBoxes_Precision/mAP" % i]
+                    for i in range(4)]
+        if best is None or best[0] != DS_STEPS or row["num_examples"] != len(
+                scenes) or not np.all(np.isfinite(coco_map)):
+            raise AssertionError("dataset_build: evaluation %s, row %s" % (
+                best, row))
+        log("dataset_build: COCO evaluation of step %d over %d images in "
+            "%.2f s: mAP@[.5:.95] per iteration %s" % (
+                best[0], row["num_examples"], time.perf_counter() - t0,
+                json.dumps(coco_map)))
+    log("dataset_build: passed in %.1f s; median step %.3f ms on the card's "
+        "timeline" % (time.perf_counter() - t_phase, medians["event_ms"]))
+    return launches
+
+
 DP_WORLD = 2
 DP_BATCH = 2  # per rank: the global batch is DP_WORLD x DP_BATCH
 DP_CANVAS = (1024, 1536)  # the coco17 fixed-batch step's canvas
@@ -2693,16 +3063,21 @@ def main(argv):
                                            emb_file)
     torch.cuda.empty_cache()
     phase_data_parallel(torch)
+    torch.cuda.empty_cache()
+    dataset_launches = phase_dataset_build(torch)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
     log("chip_smoke: the eval daemon's launches (two checkpoints) %s"
         % json.dumps(eval_launches))
 
     # Launches: the train() run of the train_loop phase, the main path,
-    # which runs all five (the coco17 step phase does too).
+    # which runs all five (the coco17 step phase, text_cap2det's and
+    # dataset_build's train() do too).
     if min(launches.values()) < 1 or min(coco["launches"].values()) < 1 or (
-            min(text_launches.values()) < 1):
-        raise AssertionError("a kernel did not run in training: %s, %s, %s"
-                             % (launches, coco["launches"], text_launches))
+            min(text_launches.values()) < 1) or min(
+                dataset_launches.values()) < 1:
+        raise AssertionError("a kernel did not run in training: %s, %s, %s, "
+                             "%s" % (launches, coco["launches"],
+                                     text_launches, dataset_launches))
     rows = [
         ("roi_crop_maxpool", "roi_pool.cu", "roi_pool.py:1213", k1),
         ("pool_fwd", "pool.cu", "pool_grad.py:350", k4),

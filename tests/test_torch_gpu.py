@@ -678,3 +678,27 @@ def test_text_extractor_labels_on_the_card_equal_the_cpu(cuda, tmp_path):
     want = on_cpu.extract_labels(texts)
     assert 0 < want.sum() < want.size
     np.testing.assert_array_equal(on_card.extract_labels(texts), want)
+
+
+def test_host_library_builds_on_the_card_machine(cuda, tmp_path, monkeypatch):
+    """Selective search's host library builds from csrc/host/ into a clean
+    directory with the host compiler of the machine beside the card, and
+    two calls give identical boxes and label maps. (It runs on the host:
+    the card takes no part; the fixture only places the test there.)"""
+    from cap2det_tpu_torch import native
+
+    monkeypatch.setattr(build, "HOST_BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_host_lib", None)
+    monkeypatch.setattr(native, "_lib", None)
+    rng = np.random.default_rng(21)
+    image = rng.normal(110, 12, (120, 160, 3)).clip(0, 255).astype(np.uint8)
+    image[20:70, 30:90] = (200, 40, 40)
+    first = native.selective_search(image, seed=3)
+    assert build.host_build_info["built"]
+    assert (tmp_path / build.host_build_info["key"]
+            / build.HOST_LIB_NAME).is_file()
+    assert len(first) > 10
+    np.testing.assert_array_equal(native.selective_search(image, seed=3),
+                                  first)
+    np.testing.assert_array_equal(native.felzenszwalb(image, 100.0, 20),
+                                  native.felzenszwalb(image, 100.0, 20))

@@ -1,7 +1,9 @@
-"""The port imports neither JAX nor the JAX package, nor nltk nor cv2
-(the machine with the card has none; the port keeps its own Treebank
-rules and its own RGB<->HSV): an AST walk over every module of
-``cap2det_tpu_torch/`` and over ``chip_smoke.py``."""
+"""The port imports neither JAX nor the JAX package, nor TensorFlow, nltk
+or cv2 (the machine with the card has none; the port keeps its own
+Treebank rules, its own RGB<->HSV, its own cv2-exact resize and its own
+TensorFlow checkpoint reader): an AST walk over every module of
+``cap2det_tpu_torch/`` and over ``chip_smoke.py``.
+"""
 
 import ast
 import pathlib
@@ -12,7 +14,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "orbax", "cap2det_tpu", "nltk", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "cap2det_tpu", "nltk", "cv2",
+             "tensorflow")
 SOURCES = sorted((ROOT / "cap2det_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -45,9 +48,11 @@ def test_the_guard_catches_each_form():
               "import cap2det_tpu\ndef f():\n    from jax import lax\n"
               "import cap2det_tpu_torch.data\nfrom . import z\n"
               "from nltk.tokenize import TreebankWordTokenizer\n"
-              "import cv2\n")
+              "import cv2\n"
+              "from tensorflow.python.training import py_checkpoint_reader\n"
+              "import tensorflow as tf\n")
     assert forbidden_imports(source) == [
         (1, "jax"), (2, "jax.numpy"), (3, "jaxlib"), (4, "orbax.checkpoint"),
         (5, "cap2det_tpu.data"), (6, "cap2det_tpu"), (11, "nltk.tokenize"),
-        (12, "cv2"),
+        (12, "cv2"), (13, "tensorflow.python.training"), (14, "tensorflow"),
         (8, "jax")]  # ast.walk: the function's body after the top level
