@@ -419,12 +419,14 @@ def _poll_loop(
         manager = ckpt_lib.CheckpointManager(model_dir)
         try:
             state = manager.restore(step=step)
-        except OSError as exc:
+        except Exception as exc:  # noqa: BLE001
             # Races the trainer's checkpoint GC (max_to_keep) when used
             # during training — especially evaluate_all, whose
             # oldest-first target is exactly the next deletion victim.
-            # A deleted checkpoint never comes back: mark it evaluated
-            # and move on instead of dying mid-curve.
+            # A file deleted mid-read fails as OSError, EOFError,
+            # RuntimeError or an unpickling error. A deleted checkpoint
+            # never comes back: mark it evaluated and move on instead of
+            # dying mid-curve.
             log.warning("checkpoint %s vanished before restore (%s); "
                         "skipping", step, exc)
             evaluated.add(step)

@@ -24,6 +24,7 @@ and its single-process mesh over a host's n chips, are both
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import os
 import time
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cap2det_tpu_torch import kernels
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline as pipeline_lib
@@ -411,6 +413,9 @@ def train(
         writer.close()
     log.info("training finished at step %d in %.1fs", step,
              time.time() - t_start)
+    # This process's launches of each kernel (a run script's trainer is a
+    # process of its own: its log is how a caller sees them).
+    log.info("kernel launches: %s", json.dumps(kernels.launch_counts()))
     return state
 
 

@@ -109,7 +109,23 @@ Phases (any failure ends the run with a nonzero exit code):
      train() at configs/coco17_extend_match.pbtxt for 12 steps over those
      records from the passthrough backbone (launches per step K1 1, K4 3,
      K2 1, K5 2, K6 1, step medians, peak memory); one COCO evaluation of
-     its last checkpoint.
+     its last checkpoint;
+ 17. configs: the four configs no other phase steps
+     (coco17_exact_match, coco17_groundtruth, voc07_groundtruth,
+     flickr30k_text_classifier_match, the last with a stand-in table and
+     a text classifier checkpoint written here) take two steps each at
+     their shipped widths from a seeded batch; each keeps Mixed_4e
+     trainable, so every step launches K1 1, K4 3, K2 1, K5 2, K6 1;
+     losses, step times, peak memory;
+ 18. scripts: python -m cap2det_tpu_torch.scripts.quality_run at a cut
+     size (24 scenes, 500 steps, selective search in 4 processes) on the
+     card, its curve finite at steps 250 and 500 and its trainer's
+     launches those of the full first-stage freeze every step; then
+     scripts.train (the trainer and the eval daemon side by side on the
+     card) over the same records, 600 steps, a checkpoint every 50 and
+     3 kept: exit code 0, the checkpoints the daemon evaluated (at least
+     one begun while the trainer stepped) and its lag behind the newest
+     in steps and seconds, and no process of either left behind.
 
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 (features [2, 76, 114, 576], P=500).
@@ -128,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -249,13 +266,9 @@ def compare(torch, got, want, dtype_name, tol=TOL):
 
 
 def launch_counts():
-    from cap2det_tpu_torch.kernels import pool_grad, roi_pool
+    from cap2det_tpu_torch import kernels
 
-    return {"roi_crop_maxpool": roi_pool.launches,
-            "pool_fwd": pool_grad.launches,
-            "roi_crop_maxpool_grad": roi_pool.grad_launches,
-            "maxpool_grad": pool_grad.maxpool_grad_launches,
-            "avgpool_grad": pool_grad.avgpool_grad_launches}
+    return kernels.launch_counts()
 
 
 POOL_GRAD_PATHS = ("maxpool_grad_tiled_launches",
@@ -1019,18 +1032,20 @@ def train_batch(rng, batch, hw, num_p, num_classes, pad):
 
 
 def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
-                breakdown):
+                breakdown, text=None):
     """Training steps at a config's full width with seeded He weights:
     launch counts per step, finite losses, frozen leaves unchanged,
     trainable weights moved, seconds per step, peak memory, and with
-    `breakdown` one more step timed by span."""
+    `breakdown` one more step timed by span. `text`, where given, is the
+    config's text with its data files retargeted."""
     from cap2det_tpu_torch.config import schema
     from cap2det_tpu_torch.kernels import pool_grad, roi_pool
     from cap2det_tpu_torch.models import inception_v2, registry
     from cap2det_tpu_torch.train import optimizers, trainer
     import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
 
-    cfg = schema.load_pipeline(os.path.join("configs", config))
+    cfg = (schema.loads_pipeline(text) if text is not None
+           else schema.load_pipeline(os.path.join("configs", config)))
     model = registry.build(cfg.model, is_training=True,
                            compute_dtype=torch.bfloat16)
     state, opt, schedule, mask = trainer.TrainState.create(
@@ -1117,7 +1132,7 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
             tag, timed, float(np.median(times)), min(times), max(times),
             json.dumps(times), peak))
     result = {"launches": launches, "median_s": float(np.median(times)),
-              "peak_bytes": peak}
+              "peak_bytes": peak, "losses": losses, "step_s": times}
     if breakdown:
         targets = [
             (model, "loss", "forward (loss)"),
@@ -3007,6 +3022,231 @@ def phase_data_parallel(torch):
                 time.perf_counter() - t0))
 
 
+# -- configs: the four configs no other phase steps -------------------------
+
+CONFIG_STEPS = 2
+NEVER_STEPPED = ("coco17_exact_match.pbtxt", "coco17_groundtruth.pbtxt",
+                 "voc07_groundtruth.pbtxt",
+                 "flickr30k_text_classifier_match.pbtxt")
+FLICKR_GLOVE_FILE = "'data/flickr30k_open_vocab_300d.npy'"
+
+
+def phase_configs(torch, directory):
+    """configs: CONFIG_STEPS training steps of each config in
+    NEVER_STEPPED at its shipped width (phase_train: batch 2, 1024x1536,
+    P=500, seeded He weights and batch). Each keeps Mixed_4e trainable
+    under the first stage's multiplier of 0.0, so every step must launch
+    K1 1, K4 3, K2 1, K5 2, K6 1 (PER_STEP; counts set to 0 just before
+    the steps). flickr30k_text_classifier_match reads a seeded stand-in
+    for its 300-d table and a text classifier checkpoint written here.
+    Returns {config: phase_train's result}."""
+    from cap2det_tpu_torch import params as params_lib
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.text import extractors, vocab
+    from cap2det_tpu_torch.train import checkpoint as ckpt_lib
+
+    flickr = "flickr30k_text_classifier_match.pbtxt"
+    words = vocab.load_lines(os.path.join("data", "flickr30k_open_vocab.txt"))
+    emb_file = os.path.join(directory, "flickr30k_open_vocab_300d.npy")
+    np.save(emb_file, (GLOVE_STD * np.random.default_rng(SEED + 40)
+                       .standard_normal((len(words), GLOVE_DIMS)))
+            .astype(np.float32))
+    text = shipped_config_text(flickr, [(FLICKR_GLOVE_FILE,
+                                         "'%s'" % emb_file)])
+    ext_cfg = schema.loads_pipeline(text).model.cap2det_model \
+        .label_extractor.text_classifier_match_extractor
+    checkpoint = os.path.join(directory, "coco17_text")
+    ckpt_lib.save_params(checkpoint, params_lib.from_jax_numpy(
+        extractors.TextClassifierMatchExtractor(ext_cfg, device="cpu")
+        .init_params_numpy(SEED), "cpu"))
+    texts = {flickr: text.replace(TEXT_CHECKPOINT, "'%s'" % checkpoint)}
+
+    results = {}
+    for name in NEVER_STEPPED:
+        text = texts.get(name) or shipped_config_text(name, [])
+        reader = schema.loads_pipeline(text).train_reader.cap2det_reader
+        results[name] = phase_train(
+            torch, name, batch_size=reader.batch_size,
+            num_p=reader.max_num_proposals, warmup=0, timed=CONFIG_STEPS,
+            want=PER_STEP, breakdown=False, text=text)
+        torch.cuda.empty_cache()
+    log("configs: " + json.dumps({
+        name.split(".")[0]: {"launches": r["launches"],
+                             "losses": r["losses"], "step_s": r["step_s"],
+                             "peak_bytes": r["peak_bytes"]}
+        for name, r in results.items()}))
+    return results
+
+
+# -- scripts: the run scripts of cap2det_tpu_torch/scripts ------------------
+
+QR_IMAGES = 24
+QR_STEPS = 500
+QR_NPROC = 4
+QR_TAG = "groundtruth-exact"
+QR_TIMEOUT = 420.0
+# scripts.train: long enough that the daemon's 10 s polls land while the
+# trainer steps at any step time seen so far (30-65 ms), with retention
+# racing the daemon.
+SCRIPT_STEPS = 600
+SCRIPT_SAVE_EVERY = 50
+SCRIPT_KEEP = 3
+SCRIPT_TIMEOUT = 300.0
+GONE_SECS = 30.0
+# quality_run's pipeline freezes the whole first stage (as voc07_inc2):
+# no K2, and K5 only for Mixed_5c.
+FROZEN_PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3,
+                   "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
+                   "avgpool_grad": 1}
+
+
+def logged_launches(text, where):
+    """The {kernel: launches} a trainer process logged at its end
+    ("kernel launches: {...}", train/trainer.py)."""
+    marker = "kernel launches: "
+    lines = [l for l in text.splitlines() if marker in l]
+    if len(lines) != 1:
+        raise AssertionError("%s: %d kernel-launch lines" % (where,
+                                                             len(lines)))
+    return json.loads(lines[0].split(marker, 1)[1])
+
+
+def group_gone(pgid, within=GONE_SECS):
+    deadline = time.monotonic() + within
+    while time.monotonic() < deadline:
+        try:
+            os.killpg(pgid, 0)
+        except ProcessLookupError:
+            return True
+        time.sleep(0.2)
+    return False
+
+
+def phase_scripts(torch, directory):
+    """scripts: (1) ``python -m cap2det_tpu_torch.scripts.quality_run`` at a
+    cut size (QR_IMAGES scenes, QR_STEPS steps, QR_NPROC selective-search
+    processes, groundtruth labels, class set 9) on the card: its curve has
+    a finite mAP at steps 250 and 500, and its trainer launched
+    FROZEN_PER_STEP every step; (2) ``scripts.train`` over the same
+    records with a staged copy of that pipeline (checkpoints every
+    SCRIPT_SAVE_EVERY steps, SCRIPT_STEPS steps, SCRIPT_KEEP kept, so
+    retention races the daemon): exit code 0, the daemon started
+    evaluating at least one checkpoint before the trainer's last step,
+    and neither process group outlives the script. Reports the
+    checkpoints written, those the daemon evaluated, and its lag behind
+    the newest checkpoint in steps and seconds (checkpoint times from the
+    trainer's metrics.jsonl rows at those steps)."""
+    from cap2det_tpu_torch.scripts import quality_run, steps
+
+    env = steps.env()
+    work = os.path.join(directory, "quality")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cap2det_tpu_torch.scripts.quality_run", work,
+         str(QR_IMAGES), str(QR_STEPS), str(QR_NPROC)],
+        env=env, capture_output=True, text=True, timeout=QR_TIMEOUT)
+    qr_wall = time.perf_counter() - t0
+    train_log = os.path.join(work, "train-%s.log" % QR_TAG)
+    if proc.returncode != 0:
+        raise AssertionError("scripts: quality_run exited %d:\n%s\n%s" % (
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-3000:]))
+    summary = quality_run.summary(os.path.join(work, "model-" + QR_TAG))
+    curve = summary["curve"]
+    if not {250, 500} <= set(curve) or not all(
+            np.isfinite(curve[s]) for s in (250, 500)):
+        raise AssertionError("scripts: quality_run's curve %s" % curve)
+    with open(train_log) as f:
+        launches = logged_launches(f.read(), "quality_run")
+    want = {k: v * QR_STEPS for k, v in FROZEN_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError("scripts: quality_run's trainer launched %s, "
+                             "expected %s" % (launches, want))
+    log("scripts: quality_run %d scenes, %d steps, %d processes in %.1f s; "
+        "trainer launches %s; summary %s" % (
+            QR_IMAGES, QR_STEPS, QR_NPROC, qr_wall, json.dumps(launches),
+            json.dumps(summary)))
+
+    stage = os.path.join(directory, "staged")
+    os.makedirs(os.path.join(stage, "configs"))
+    with open(os.path.join(work, "pipeline-%s.pbtxt" % QR_TAG)) as f:
+        text = f.read()
+    for old, new in (("max_steps: %d" % QR_STEPS,
+                      "max_steps: %d" % SCRIPT_STEPS),
+                     ("save_checkpoints_steps: 250",
+                      "save_checkpoints_steps: %d" % SCRIPT_SAVE_EVERY),
+                     ("keep_checkpoint_max: 50",
+                      "keep_checkpoint_max: %d" % SCRIPT_KEEP)):
+        if old not in text:
+            raise AssertionError("scripts: the pipeline has no %s" % old)
+        text = text.replace(old, new)
+    with open(os.path.join(stage, "configs", "quality.pbtxt"), "w") as f:
+        f.write(text)
+    train_dir = os.path.join(directory, "train_model")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cap2det_tpu_torch.scripts.train", "quality",
+         train_dir, "--pretrained_checkpoint",
+         os.path.join(work, "passthrough_ckpt")],
+        cwd=stage, env=env, capture_output=True, text=True,
+        timeout=SCRIPT_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("scripts: scripts.train exited %d:\n%s" % (
+            proc.returncode, proc.stderr[-3000:]))
+    pids = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^(eval daemon|trainer): pid (\d+)", proc.stderr, re.MULTILINE)}
+    left = [role for role, pid in pids.items() if not group_gone(pid)]
+    if len(pids) != 2 or left:
+        raise AssertionError("scripts: processes %s, still running %s"
+                             % (pids, left))
+    launches = logged_launches(proc.stderr, "scripts.train")
+    want = {k: v * SCRIPT_STEPS for k, v in FROZEN_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError("scripts: scripts.train's trainer launched %s, "
+                             "expected %s" % (launches, want))
+    metrics = quality_run.read_jsonl(
+        os.path.join(train_dir, "metrics.jsonl"))
+    saved = {r["step"]: r["time"] for r in metrics
+             if r["step"] % SCRIPT_SAVE_EVERY == 0}
+    evals = quality_run.read_jsonl(
+        os.path.join(train_dir, "eval_metrics.jsonl"))
+    if len(saved) != SCRIPT_STEPS // SCRIPT_SAVE_EVERY or not evals:
+        raise AssertionError("scripts: checkpoints %s, evaluated %s" % (
+            sorted(saved), [r["step"] for r in evals]))
+    # The trainer's last logged step; an evaluation counts as made while
+    # the trainer ran when it started (its row's time less its duration)
+    # before that.
+    trainer_end = max(r["time"] for r in metrics)
+    lags = []
+    for r in evals:
+        newest = max(s for s, t in saved.items() if t <= r["time"])
+        lags.append({"step": r["step"], "newest": newest,
+                     "lag_steps": newest - r["step"],
+                     "lag_s": r["time"] - saved[r["step"]],
+                     "during_training": r["time"] - r[
+                         "eval/seconds_per_checkpoint"] < trainer_end,
+                     "seconds_per_checkpoint":
+                         r["eval/seconds_per_checkpoint"],
+                     "best_map": quality_run.best_map(r)})
+    if not any(l["during_training"] for l in lags):
+        raise AssertionError("scripts: the daemon evaluated no checkpoint "
+                             "while the trainer ran: %s" % lags)
+    with open(os.path.join(train_dir, "eval.log")) as f:
+        skipped = f.read().count("vanished before restore")
+    kept = sorted(int(d) for d in os.listdir(os.path.join(train_dir, "ckpt"))
+                  if d.isdigit())
+    log("scripts: scripts.train %d steps in %.1f s: checkpoints written %s, "
+        "kept %s; the daemon evaluated %s (%d while the trainer ran), "
+        "skipped %d that vanished; lags %s; trainer launches %s; no "
+        "process left" % (
+            SCRIPT_STEPS, wall, json.dumps(sorted(saved)), json.dumps(kept),
+            json.dumps([r["step"] for r in evals]),
+            sum(l["during_training"] for l in lags), skipped,
+            json.dumps(lags), json.dumps(launches)))
+    return {"quality_run_s": qr_wall, "curve": curve, "train_s": wall,
+            "evaluated": [r["step"] for r in evals], "lags": lags}
+
+
 def main(argv):
     import torch
 
@@ -3065,6 +3305,12 @@ def main(argv):
     phase_data_parallel(torch)
     torch.cuda.empty_cache()
     dataset_launches = phase_dataset_build(torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_configs_") as tmp:
+        phase_configs(torch, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        phase_scripts(torch, tmp)
     log("chip_smoke: all phases passed in %.1f s" % (time.perf_counter() - t0))
     log("chip_smoke: the eval daemon's launches (two checkpoints) %s"
         % json.dumps(eval_launches))

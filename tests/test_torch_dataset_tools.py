@@ -430,7 +430,13 @@ def test_rich_synthetic_dataset_equals_jax(tmp_path, monkeypatch):
     def jax_run_ss(argv):
         _run_jax_ss(monkeypatch, argv)
 
-    # class_set 9 before 80: the tools swap module globals for 80.
+    # class_set 9 before 80: the tools swap module globals for 80, and
+    # the monkeypatch puts them back for the tests that run after this
+    # one in the same process (tests/test_synonym_captions.py reads them).
+    for tool in (jax_tool, make_rich_synthetic_dataset):
+        for name in ("CLASSES", "SYNONYMS", "COLORS", "SHAPES", "TEXTURES"):
+            monkeypatch.setattr(tool, name, getattr(tool, name, None),
+                                raising=False)
     for extra in (["--caption_style", "synonyms"], ["--class_set", "80"]):
         tag = extra[-1]
         _rich(tmp_path / ("jax" + tag), jax_run_ss, extra, jax_main)

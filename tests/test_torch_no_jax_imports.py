@@ -3,10 +3,17 @@ or cv2 (the machine with the card has none; the port keeps its own
 Treebank rules, its own RGB<->HSV, its own cv2-exact resize and its own
 TensorFlow checkpoint reader): an AST walk over every module of
 ``cap2det_tpu_torch/`` and over ``chip_smoke.py``.
+
+The run scripts start their steps by module name (``-m`` takes a
+string, which the import walk does not see), so no string of
+``cap2det_tpu_torch/scripts/`` other than a docstring may name a module
+of the JAX package, a file under ``tools/`` or a shell script under
+``scripts/``.
 """
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -18,6 +25,10 @@ FORBIDDEN = ("jax", "jaxlib", "orbax", "cap2det_tpu", "nltk", "cv2",
              "tensorflow")
 SOURCES = sorted((ROOT / "cap2det_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+SCRIPTS = sorted((ROOT / "cap2det_tpu_torch" / "scripts").glob("*.py"))
+FORBIDDEN_STRING = re.compile(
+    r"\bcap2det_tpu\.|(?<!cap2det_tpu_torch/)(?<![\w.])tools/"
+    r"|\bscripts/[\w./-]*\.sh\b")
 
 
 def forbidden_imports(source):
@@ -56,3 +67,41 @@ def test_the_guard_catches_each_form():
         (5, "cap2det_tpu.data"), (6, "cap2det_tpu"), (11, "nltk.tokenize"),
         (12, "cv2"), (13, "tensorflow.python.training"), (14, "tensorflow"),
         (8, "jax")]  # ast.walk: the function's body after the top level
+
+
+def forbidden_strings(source):
+    """[(line, string)] of the string constants in `source`, docstrings
+    aside, that name the JAX package, ``tools/`` or ``scripts/*.sh``."""
+    tree = ast.parse(source)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings
+            and FORBIDDEN_STRING.search(node.value)]
+
+
+@pytest.mark.parametrize("path", SCRIPTS,
+                         ids=[str(p.relative_to(ROOT)) for p in SCRIPTS])
+def test_no_script_starts_the_jax_package(path):
+    assert forbidden_strings(path.read_text()) == []
+
+
+def test_the_string_guard_catches_each_form():
+    source = ('"""Counterpart of scripts/train.sh and cap2det_tpu.cli."""\n'
+              'a = "cap2det_tpu.cli.train_main"\n'
+              'b = ["python", "tools/create_vocab.py"]\n'
+              'c = "bash scripts/quality_run.sh"\n'
+              'd = "cap2det_tpu_torch.tools.create_vocab"\n'
+              'e = "cap2det_tpu_torch/tools/x.py"\n'
+              'def f():\n    "scripts/eval_once.sh in a docstring"\n'
+              '    return f"{a} scripts/train_text.sh"\n')
+    assert sorted(forbidden_strings(source)) == [
+        (2, "cap2det_tpu.cli.train_main"), (3, "tools/create_vocab.py"),
+        (4, "bash scripts/quality_run.sh"), (9, " scripts/train_text.sh")]
