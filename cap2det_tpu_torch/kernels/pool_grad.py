@@ -58,6 +58,46 @@ def same_pads(size, kernel, stride):
     return out, pad_total // 2, pad_total - pad_total // 2
 
 
+def in_bounds_taps(h, w, kernel, stride):
+    """In-bounds taps summed over the windows of a SAME pool of one
+    H x W map (a window at the border reads fewer than kernel^2)."""
+    taps = 1
+    for size in (h, w):
+        out, pad_lo, _ = same_pads(size, kernel, stride)
+        taps *= sum(min(o * stride - pad_lo + kernel, size)
+                    - max(o * stride - pad_lo, 0) for o in range(out))
+    return taps
+
+
+def pool_fwd_flops(shape, kind, kernel, stride):
+    """Floating-point operations of the function K4 computes on x of
+    `shape` [N, H, W, C]: one max or add per in-bounds tap of every
+    window and channel, and for the avg-pool one divide per output:
+
+        N * C * (taps + (OH * OW if avg)).
+    """
+    n, h, w, c = shape
+    out_h, out_w, _ = _geometry(h, w, kernel, stride)
+    divides = out_h * out_w if kind == "pool_avg" else 0
+    return n * c * (in_bounds_taps(h, w, kernel, stride) + divides)
+
+
+def maxpool_grad_flops(shape, kernel, stride):
+    """Floating-point operations of K5's function for x of `shape`: one
+    compare per in-bounds tap to find each window's first maximum, and
+    one add of the window's gradient into dx: N * C * (taps + OH * OW)."""
+    n, h, w, c = shape
+    out_h, out_w, _ = _geometry(h, w, kernel, stride)
+    return n * c * (in_bounds_taps(h, w, kernel, stride) + out_h * out_w)
+
+
+def avgpool_grad_flops(shape, kernel, stride):
+    """Floating-point operations of K6's function for x of `shape`: one
+    divide of each window's gradient by its count, and one add into dx
+    per in-bounds tap: N * C * (OH * OW + taps)."""
+    return maxpool_grad_flops(shape, kernel, stride)
+
+
 def _check_kind(kind):
     if kind not in KINDS:
         raise ValueError("pool kind must be one of %s, got %r" % (KINDS, kind))

@@ -105,6 +105,38 @@ def _pooled(crop_size, pool_kernel, pool_stride):
     return (crop_size - pool_kernel) // pool_stride + 1
 
 
+def forward_flops(batch, num_proposals, channels, crop_size, pool_kernel=2,
+                  pool_stride=2):
+    """Floating-point operations of the function K1 computes, whatever
+    computes it (the JAX package's ``estimate_flops`` counts its TPU
+    implementation's work instead). Per proposal and channel: 9 for each
+    of the S x S bilinear crop samples (two lerps along y and one along
+    x, each a + (b - a) * t), then k*k - 1 compares for each of the
+    S' x S' pooled windows:
+
+        B * P * C * (9 * S^2 + (k^2 - 1) * S'^2).
+    """
+    pooled = _pooled(crop_size, pool_kernel, pool_stride)
+    return (batch * num_proposals * channels
+            * (9 * crop_size ** 2 + (pool_kernel ** 2 - 1) * pooled ** 2))
+
+
+def backward_flops(batch, num_proposals, channels, crop_size, pool_kernel=2,
+                   pool_stride=2):
+    """Floating-point operations of the function K2 computes: K1's taps
+    again in reverse. The crop and each window's first maximum are found
+    as in the forward, then each pooled gradient goes to its winning
+    sample's four bilinear taps: 2 products by the y weights, 4 by the x
+    weights and 4 adds into dF per window:
+
+        forward_flops(...) + B * P * C * 10 * S'^2.
+    """
+    pooled = _pooled(crop_size, pool_kernel, pool_stride)
+    return (forward_flops(batch, num_proposals, channels, crop_size,
+                          pool_kernel, pool_stride)
+            + batch * num_proposals * channels * 10 * pooled ** 2)
+
+
 def _check_launch(name, features, boxes, crop_size, pool_kernel,
                   pool_stride):
     if features.dtype not in (torch.float32, torch.bfloat16):

@@ -66,7 +66,7 @@ def main(argv=None):
     parser.add_argument("change", help="unpacked tree of the change")
     parser.add_argument("--out", default=os.path.join("build", "ab"),
                         help="directory for the runs' logs")
-    parser.add_argument("--timeout", type=float, default=600,
+    parser.add_argument("--timeout", type=float, default=1200,
                         help="seconds allowed for each run")
     args = parser.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)

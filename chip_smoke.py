@@ -44,17 +44,29 @@ Phases (any failure ends the run with a nonzero exit code):
      leaves unchanged, a one-step breakdown by span, peak memory;
   8. train under the full first-stage freeze of configs/voc07_inc2.pbtxt
      (batch 1, P=2000, 20 classes): no ROI backward launches;
-  9. one float32 training step at 256x384, P=64 on the card and on the
+  9. bench: the measuring tools on the card, each a process of its own
+     (python -m cap2det_tpu_torch.bench --shape bench, --shape inc2,
+     --e2e; tools.bench_eval --examples 8; tools.profile_step --steps
+     8 --convs; tools.bench_components; tools.bench_backbone_parts),
+     their JSON lines printed and checked: every number finite, mfu in
+     (0, 1], the launches per step of phases 7 and 8 (and of train()
+     under --e2e), the card's name and power limit on every line,
+     bench's step_ms against phase 7's median (within both spreads,
+     or the difference printed with them), profile_step's device ms
+     per step at most bench's step_ms, its busy share and longest idle
+     gaps (each with the host operations around it) and its conv
+     table, and bench_eval's NMS share of predict in (0, 1);
+ 10. one float32 training step at 256x384, P=64 on the card and on the
      CPU from the same params and batch: loss, head gradients and updated
      head params agree; dropout's x / 0.7 and the mean over 3 eval scales
      equal the CPU's quotients bit for bit;
- 10. train_loop: train() from PNG TFRecords written here, at
+ 11. train_loop: train() from PNG TFRecords written here, at
      configs/coco17_extend_match.pbtxt as shipped, through all eight
      canvas buckets (1216x1824 ... 416x608, both orientations), launches
      per step K1 1, K4 3, K2 1, K5 2, K6 1, per-bucket step and feed-wait
      medians, peak memory; a second train() restores the final checkpoint
      bit for bit and trains on. Also says whether Pillow imports;
- 11. eval_daemon: continuous_evaluation(evaluate_all=True) at
+ 12. eval_daemon: continuous_evaluation(evaluate_all=True) at
      configs/voc07_inc2.pbtxt width (4 scales, P=2000, 20 classes, 3 OICR
      iterations, bf16) over 8 PNG records and two checkpoints of seeded
      TrainStates: one eval_metrics.jsonl row per checkpoint, oldest first,
@@ -64,10 +76,10 @@ Phases (any failure ends the run with a nonzero exit code):
      checkpoint and per image, the NMS share, peak memory; one image's
      postprocess on the CPU equals the card's bit for bit; then
      export_main and evaluate_main --run_once in a subprocess;
- 12. overfit_map: tests/test_e2e_map.py's run on the card
+ 13. overfit_map: tests/test_e2e_map.py's run on the card
      (cap2det_tpu_torch/tools/overfit_map.py): passthrough warm start, 300
      train() steps, the daemon's final mAP >= 0.5 at step 300;
- 13. text_model: configs/coco17_text.pbtxt as shipped (data/
+ 14. text_model: configs/coco17_text.pbtxt as shipped (data/
      coco_open_vocab.txt with a seeded [7379, 300] stand-in for its GloVe
      table, hidden 400, 80 classes, batch 20, dropout 0.5) over 400 seeded
      text-only records: train() for 300 steps, three checkpoints, then
@@ -75,16 +87,16 @@ Phases (any failure ends the run with a nonzero exit code):
      feed's wait, peak memory, the loss falling, P/R and seconds per
      checkpoint; card vs CPU float32 logits of one batch, and the
      dropout's division by 0.5 and 0.7 bit for bit;
- 14. text_cap2det: Cap2Det train() at
+ 15. text_cap2det: Cap2Det train() at
      configs/coco17_text_classifier_match.pbtxt as shipped, its text
-     classifier warm-started from phase 13's model_dir, over train_loop's
+     classifier warm-started from phase 14's model_dir, over train_loop's
      records plus records whose captions name only synonyms: launches per
      step K1 1, K4 3, K2 1, K5 2, K6 1 through at least two canvas
      buckets, step medians, peak memory, the images labelled beyond an
      exact match, the extractor's labels on the card against the CPU's
      (every flip with its margin); then a few steps of
      configs/coco17_word_vector_match.pbtxt;
- 15. data_parallel: coco17_extend_match at full width on two ranks of a
+ 16. data_parallel: coco17_extend_match at full width on two ranks of a
      torch.distributed group on the one card (gloo), each a spawned
      process: (a) one float32 step, dropout off, on each rank's half of a
      seeded global batch of 4 against this process's step on the whole
@@ -96,7 +108,7 @@ Phases (any failure ends the run with a nonzero exit code):
      per step, step medians, checkpoints and metrics from rank 0 only,
      peak memory.
 
- 16. dataset_build: the README's quick start from cap2det_tpu_torch
+ 17. dataset_build: the README's quick start from cap2det_tpu_torch
      alone: 12 seeded 480x640 rich scenes as JPEG
      (tools/make_rich_synthetic_dataset.py) in a COCO layout naming COCO
      classes; selective search in two processes
@@ -117,14 +129,14 @@ Phases (any failure ends the run with a nonzero exit code):
      and vocabularies byte for byte, and their records as a multiset of
      record bytes, against the tools run by hand with the shell scripts'
      flags; each builder's wall time and seconds per image on the host;
- 17. configs: the four configs no other phase steps
+ 18. configs: the four configs no other phase steps
      (coco17_exact_match, coco17_groundtruth, voc07_groundtruth,
      flickr30k_text_classifier_match, the last with a stand-in table and
      a text classifier checkpoint written here) take two steps each at
      their shipped widths from a seeded batch; each keeps Mixed_4e
      trainable, so every step launches K1 1, K4 3, K2 1, K5 2, K6 1;
      losses, step times, peak memory;
- 18. scripts: python -m cap2det_tpu_torch.scripts.quality_run at a cut
+ 19. scripts: python -m cap2det_tpu_torch.scripts.quality_run at a cut
      size (24 scenes, 500 steps, selective search in 4 processes) on the
      card, its curve finite at steps 250 and 500 and its trainer's
      launches those of the full first-stage freeze every step; then
@@ -160,12 +172,12 @@ import types
 
 import numpy as np
 
+from cap2det_tpu_torch.tools.benchlib import (
+    busy_share, card_name_and_limit, cuda_ms, device_ms, host_cpu)
+
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# Per pooled K1 output: 2x2 samples, each two y-lerps and one x-lerp of
-# 3 float32 operations, then 3 maxima.
-ROI_OPS_PER_OUTPUT = 4 * 3 * 3 + 3
 FEATURE_SHAPE = (1, 76, 114, 576)  # Mixed_4e map of the 1216x1824 canvas
 NUM_PROPOSALS = 2000
 # Every shape the main path launches K1 at: the Mixed_4e maps of the four
@@ -204,9 +216,6 @@ TRAIN_POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
 # The same pools at voc07_inc2's B*P = 2000 (batch 1, P=2000).
 VOC_POOL_SHAPES = [(name + " N=2000", kind, k, s, (2000,) + shape[1:])
                    for name, kind, k, s, shape in TRAIN_POOL_SHAPES]
-# Per pooled K2 cell: 4 samples of 3 lerps (9 float32 operations), 4
-# compares, then 2 + 4 products and 4 adds into dF.
-ROI_GRAD_OPS_PER_CELL = 4 * 9 + 4 + 6 + 4
 # K2 against its plain version: the same terms of size ~1 added into each
 # dF value, in 64-bit fixed point on the card and in float32 with
 # index_add_ there.
@@ -220,53 +229,6 @@ TRAIN_LOOP_STEPS = 40
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_name_and_limit():
-    """The card's name and power limit as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, iters, warmup=2):
-    """Mean milliseconds of fn() on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters=50, replays=4):
-    """Mean milliseconds of fn() on the card with no host time between
-    launches: `iters` calls captured once in a CUDA graph, whose replays
-    are timed by CUDA events. Where the host takes longer to launch a
-    kernel than the card to run it, cuda_ms reads the host."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound_ms(nbytes, ops):
@@ -461,7 +423,7 @@ def phase_roi(torch):
                     "tol(rtol,atol)": TOL[name]}
             if num_p == NUM_PROPOSALS and dtype == torch.bfloat16:
                 line["plain_ms"] = cuda_ms(
-                    torch, lambda: roi_ops.crop_resize_maxpool(
+                    lambda: roi_ops.crop_resize_maxpool(
                         feats, boxes, 14, 2, 2), iters=3, warmup=1)
                 result = {"max_abs_err": err, "plain_ms": line["plain_ms"]}
             log(json.dumps(line))
@@ -491,12 +453,13 @@ def phase_roi(torch):
             result["max_abs_err"] = max(result["max_abs_err"], err)
             nbytes = (feats.numel() * feats.element_size() + boxes.numel() * 4
                       + got.numel() * got.element_size())
-            b_ms, b_by = bound_ms(nbytes, ROI_OPS_PER_OUTPUT * got.numel())
+            b_ms, b_by = bound_ms(nbytes, roi_pool.forward_flops(
+                *boxes.shape[:2], shape[-1], 14, 2, 2))
             positions = footprint_positions(torch, boxes, *shape[1:3], 14)
             line = {"kernel": "roi_crop_maxpool", "shape": label,
                     "features": list(shape), "P": num_p, "boxes": box_set,
                     "max_abs_err_exact": 0.0, "max_abs_err": err,
-                    "kernel_ms": cuda_ms(torch, lambda: roi_pool.
+                    "kernel_ms": cuda_ms(lambda: roi_pool.
                                          roi_crop_maxpool(feats, boxes, 14,
                                                           2, 2), iters=20),
                     "bound_ms": b_ms, "bound_by": b_by,
@@ -517,19 +480,6 @@ def phase_roi(torch):
     log("roi_crop_maxpool: %d staged launches, %d generic, at the model's "
         "shapes" % (staged, generic))
     return result
-
-
-def _pool_ops(shape, kernel, stride):
-    """In-bounds taps summed over all outputs of a SAME pool."""
-    from cap2det_tpu_torch.kernels.pool_grad import same_pads
-
-    n, h, w, c = shape
-    taps = 1
-    for size in (h, w):
-        out, pad_lo, _ = same_pads(size, kernel, stride)
-        taps *= sum(min(o * stride - pad_lo + kernel, size)
-                    - max(o * stride - pad_lo, 0) for o in range(out))
-    return n * c * taps
 
 
 def phase_pool(torch):
@@ -563,15 +513,14 @@ def phase_pool(torch):
                     lib().permute(0, 2, 3, 1).float(), want.float(),
                     rtol=TOL[name][0], atol=TOL[name][1])
                 nbytes = (x.numel() + got.numel()) * x.element_size()
-                ops = _pool_ops(shape, k, s) + (
-                    got.numel() if kind == "pool_avg" else 0)
-                b_ms, b_by = bound_ms(nbytes, ops)
+                b_ms, b_by = bound_ms(nbytes, pool_grad.pool_fwd_flops(
+                    shape, kind, k, s))
                 line.update(
-                    kernel_ms=cuda_ms(torch, lambda: pool_grad.pool_fwd(
+                    kernel_ms=cuda_ms(lambda: pool_grad.pool_fwd(
                         x, kind, k, s), iters=50),
-                    plain_ms=cuda_ms(torch, lambda: pool_grad.pool_same_plain(
+                    plain_ms=cuda_ms(lambda: pool_grad.pool_same_plain(
                         x, kind, k, s), iters=20),
-                    library_ms=cuda_ms(torch, lib, iters=50),
+                    library_ms=cuda_ms(lib, iters=50),
                     bound_ms=b_ms, bound_by=b_by)
                 line["kernel_over_bound"] = line["kernel_ms"] / b_ms
                 total["max_abs_err"] = max(total["max_abs_err"], err)
@@ -844,14 +793,14 @@ def phase_roi_grad(torch):
                 nbytes = (2 * feats.numel() * feats.element_size()
                           + boxes.numel() * 4
                           + grad.numel() * grad.element_size())
-                b_ms, b_by = bound_ms(nbytes,
-                                      ROI_GRAD_OPS_PER_CELL * grad.numel())
+                b_ms, b_by = bound_ms(nbytes, roi_pool.backward_flops(
+                    *boxes.shape[:2], feats.shape[-1], 14, 2, 2))
                 line.update(
-                    kernel_ms=cuda_ms(torch, lambda: roi_pool.
+                    kernel_ms=cuda_ms(lambda: roi_pool.
                                       roi_crop_maxpool_grad(
                                           feats, boxes, grad, 14, 2, 2),
                                       iters=20),
-                    plain_ms=cuda_ms(torch, lambda: roi_ops.
+                    plain_ms=cuda_ms(lambda: roi_ops.
                                      crop_resize_maxpool_grad(
                                          feats, boxes, grad, 14, 2, 2),
                                      iters=2, warmup=1),
@@ -875,7 +824,7 @@ def phase_roi_grad(torch):
                        only=BOX_SETS[box_set]) for _ in range(batch)])).cuda()
         line = {"kernel": "roi_crop_maxpool_grad", "boxes": box_set,
                 "dtype": "bfloat16",
-                "kernel_ms": cuda_ms(torch, lambda: roi_pool.
+                "kernel_ms": cuda_ms(lambda: roi_pool.
                                      roi_crop_maxpool_grad(
                                          feats, boxes, grad, 14, 2, 2),
                                      iters=20)}
@@ -913,13 +862,14 @@ def phase_roi_grad(torch):
         if dtype == torch.bfloat16:
             nbytes = (2 * feats.numel() * feats.element_size()
                       + boxes.numel() * 4 + grad.numel() * grad.element_size())
-            b_ms, b_by = bound_ms(nbytes, ROI_GRAD_OPS_PER_CELL * grad.numel())
+            b_ms, b_by = bound_ms(nbytes, roi_pool.backward_flops(
+                *boxes.shape[:2], feats.shape[-1], 14, 2, 2))
             line.update(
-                kernel_ms=cuda_ms(torch, lambda: roi_pool.
+                kernel_ms=cuda_ms(lambda: roi_pool.
                                   roi_crop_maxpool_grad(
                                       feats, boxes, grad, 14, 2, 2),
                                   iters=20),
-                plain_ms=cuda_ms(torch, lambda: roi_ops.
+                plain_ms=cuda_ms(lambda: roi_ops.
                                  crop_resize_maxpool_grad(
                                      feats, boxes, grad, 14, 2, 2),
                                  iters=2, warmup=1),
@@ -1000,13 +950,14 @@ def phase_pool_grad(torch):
                     reads_x = kind == "pool_max"
                     nbytes = ((2 * x.numel() if reads_x else x.numel())
                               + g.numel()) * x.element_size()
-                    ops = _pool_ops(shape, k, s) + g.numel()
-                    b_ms, b_by = bound_ms(nbytes, ops)
+                    b_ms, b_by = bound_ms(nbytes, (
+                        pool_grad.maxpool_grad_flops if reads_x
+                        else pool_grad.avgpool_grad_flops)(shape, k, s))
                     line.update(
-                        kernel_ms=cuda_ms(torch, run, iters=50),
-                        device_ms=device_ms(torch, run),
-                        plain_ms=cuda_ms(torch, plain, iters=10),
-                        library_ms=cuda_ms(torch, lib, iters=50),
+                        kernel_ms=cuda_ms(run, iters=50),
+                        device_ms=device_ms(run),
+                        plain_ms=cuda_ms(plain, iters=10),
+                        library_ms=cuda_ms(lib, iters=50),
                         bound_ms=b_ms, bound_by=b_by)
                     line["kernel_over_bound"] = line["kernel_ms"] / b_ms
                     line["device_over_bound"] = line["device_ms"] / b_ms
@@ -1191,6 +1142,140 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
     return result
 
 
+BENCH_TIMEOUT = 300.0  # seconds for one tool's process
+BENCH_TOOLS = [  # (label, module, arguments)
+    ("bench", "cap2det_tpu_torch.bench", ["--shape", "bench"]),
+    ("bench inc2", "cap2det_tpu_torch.bench", ["--shape", "inc2"]),
+    ("bench e2e", "cap2det_tpu_torch.bench", ["--e2e"]),
+    ("bench_eval", "cap2det_tpu_torch.tools.bench_eval", ["--examples", "8"]),
+    ("profile_step", "cap2det_tpu_torch.tools.profile_step",
+     ["--steps", "8", "--convs"]),
+    ("bench_components", "cap2det_tpu_torch.tools.bench_components",
+     ["--steps", "4"]),
+    ("bench_backbone_parts", "cap2det_tpu_torch.tools.bench_backbone_parts",
+     ["--steps", "4"]),
+]
+
+
+def run_tool(label, module, args):
+    """Runs ``python -m module args`` from the repository root; returns its
+    JSON lines (each printed), or raises on a nonzero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module] + args,
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError("bench: %s exited %d:\n%s" % (
+            label, proc.returncode, proc.stderr[-4000:]))
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    for line in lines:
+        log("bench: %s %s" % (label, json.dumps(line)))
+    log("bench: %s took %.1f s" % (label, time.perf_counter() - t0))
+    if not lines:
+        raise AssertionError("bench: %s printed no JSON line" % label)
+    return lines
+
+
+def check_finite(label, value, path=""):
+    """Raises if a number anywhere in a tool's line is not finite."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            check_finite(label, v, path + "/" + str(k))
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            check_finite(label, v, "%s[%d]" % (path, i))
+    elif isinstance(value, float) and not np.isfinite(value):
+        raise AssertionError("bench: %s: %s is %r" % (label, path, value))
+
+
+def phase_bench(torch, coco, coco_want, voc_want):
+    """The measuring tools on the card, each in a process of its own; their
+    lines checked against each other and against phase 7."""
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    for label, module, args in BENCH_TOOLS:
+        lines = run_tool(label, module, args)
+        for line in lines:
+            check_finite(label, line)
+            if line.get("device") != name or not line.get("power_limit"):
+                raise AssertionError("bench: %s: a line without the card's "
+                                     "name and power limit: %s" % (label,
+                                                                   line))
+        out[label] = lines
+
+    for label, want in (("bench", coco_want), ("bench inc2", voc_want)):
+        (line,) = out[label]
+        if not 0.0 < line["mfu"] <= 1.0 or not (
+                0.0 < line["mfu_lower_bound"] <= line["mfu"]):
+            raise AssertionError("bench: %s: mfu %r, lower bound %r" % (
+                label, line["mfu"], line["mfu_lower_bound"]))
+        if line["launches"] != want:
+            raise AssertionError("bench: %s: launches per step %s, expected "
+                                 "%s" % (label, line["launches"], want))
+    bench = out["bench"][0]
+    (e2e,) = out["bench e2e"]
+    if e2e["launches"] != {k: float(v) for k, v in coco_want.items()}:
+        raise AssertionError("bench: e2e launches per step %s" % e2e[
+            "launches"])
+
+    # The same step as phase 7's: its median within both spreads, or the
+    # difference printed with them.
+    ms = [t * 1e3 for t in coco["step_s"]]
+    phase7 = (float(np.median(ms)), min(ms), max(ms))
+    agree = (bench["step_ms_min"] <= phase7[2]
+             and phase7[1] <= bench["step_ms_max"])
+    log("bench: step_ms %.4f (rounds %.4f-%.4f, CUDA events) against phase "
+        "7's median %.4f (steps %.4f-%.4f, host clock): %s" % (
+            bench["step_ms"], bench["step_ms_min"], bench["step_ms_max"],
+            phase7[0], phase7[1], phase7[2],
+            "the spreads overlap" if agree else "apart by %.4f ms" % (
+                bench["step_ms"] - phase7[0])))
+
+    profile = out["profile_step"]
+    device_ms = profile[0]["total_device_ms_per_step"]
+    if profile[0]["launches"] != {k: float(v) for k, v in coco_want.items()}:
+        raise AssertionError("bench: profile_step launches %s"
+                             % profile[0]["launches"])
+    if not 0.0 < profile[0]["busy_share_untraced"] <= 1.0:
+        raise AssertionError("bench: profile_step's untraced busy share %r"
+                             % profile[0]["busy_share_untraced"])
+    if not device_ms <= bench["step_ms"]:
+        raise AssertionError("bench: profile_step's device time %.4f ms a "
+                             "step exceeds bench's step_ms %.4f" % (
+                                 device_ms, bench["step_ms"]))
+    busy = [line for line in profile if "busy_share" in line]
+    gaps = [line for line in profile if "longest_gaps" in line]
+    if len(busy) != 1 or not 0.0 < busy[0]["busy_share"] <= 1.0 or len(
+            gaps) != 1 or not gaps[0]["longest_gaps"]:
+        raise AssertionError("bench: profile_step's busy share or gaps "
+                             "missing: %s %s" % (busy, gaps))
+    if not any(line.get("conv_total_ms", 0) > 0 for line in profile):
+        raise AssertionError("bench: profile_step's conv table is empty")
+
+    metrics = {line["metric"]: line for line in out["bench_eval"]}
+    share = metrics["eval_seconds_per_example_multiscale"]["nms_share"]
+    if set(metrics) != {"eval_seconds_per_example_multiscale",
+                        "eval_seconds_per_checkpoint_voc07_test_extrapolated",
+                        "eval_device_forward_seconds_per_scale"} or not (
+                            0.0 < share < 1.0):
+        raise AssertionError("bench: bench_eval lines %s, NMS share %r"
+                             % (sorted(metrics), share))
+    summary = [line for line in out["bench_components"] if "summary" in line]
+    parts = {line["part"] for line in out["bench_backbone_parts"]}
+    if len(summary) != 1 or len(summary[0]["summary"]) != 16 or len(
+            parts) != 18:
+        raise AssertionError("bench: components %s, parts %s" % (
+            summary, sorted(parts)))
+    log("bench: %.2f images/s at the bench shape, %.2f at inc2, %.2f end to "
+        "end; mfu %.4f; profile_step %.4f device ms a step, busy share "
+        "%.4f traced, %.4f untraced; NMS %.4f of predict" % (
+            bench["value"], out["bench inc2"][0]["value"], e2e["value"],
+            bench["mfu"], device_ms, busy[0]["busy_share"],
+            profile[0]["busy_share_untraced"], share))
+    return out
+
+
 def phase_card_vs_cpu(torch):
     """One float32 step at 256x384, P=64 with the coco17 options and
     dropout off, from the same params and batch on the card and the CPU."""
@@ -1319,28 +1404,6 @@ def snapshot(torch, state):
                   state["opt_state"]["slots"].items()
                   for k, v in slots.items()},
         "count": state["opt_state"]["count"], "step": state["step"]}
-
-
-def busy_share(trace_path):
-    """(device busy ms, window ms) of a torch.profiler chrome trace: the
-    union of the card's kernel, copy and set intervals, and the span of
-    all events."""
-    with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, None
-    for a, b in device:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    window = (max(e["ts"] + e["dur"] for e in events)
-              - min(e["ts"] for e in events))
-    return busy / 1e3, window / 1e3
 
 
 def write_train_records(directory, num_examples, image_hw, seed):
@@ -2293,28 +2356,6 @@ def flat_leaves(tree, prefix=""):
         else:
             out.append((prefix + key, value))
     return out
-
-
-def host_cpu():
-    """The host's CPU as /proc/cpuinfo names it (its model name, else its
-    vendor, family and model numbers), its architecture and its logical
-    core count."""
-    import platform
-
-    info = {}
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if not line.strip():
-                    break  # the first processor's block only
-                key, _, value = line.partition(":")
-                info[key.strip().lower()] = value.strip()
-    except OSError:
-        pass
-    name = info.get("model name") or " ".join(
-        "%s %s" % (k, info[k]) for k in ("vendor_id", "cpu family", "model",
-                                          "cpu mhz") if k in info)
-    return "%s (%s)" % (name or "unknown", platform.machine()), os.cpu_count()
 
 
 def write_coco_layout(directory, scenes, classes):
@@ -3567,6 +3608,8 @@ def main(argv):
         want={"roi_crop_maxpool": 1, "pool_fwd": 3,
               "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
               "avgpool_grad": 1})
+    torch.cuda.empty_cache()
+    phase_bench(torch, coco, PER_STEP, FROZEN_PER_STEP)
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
     torch.cuda.empty_cache()
