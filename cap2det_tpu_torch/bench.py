@@ -28,7 +28,7 @@ Prints ONE JSON line with the JAX bench's keys (``metric``, ``value``,
 clock beside the CUDA events (``tools/benchlib.time_rounds``), peak
 memory, kernel launches per step, and the card's name and power limit.
 ``tflops_per_step`` is the aten count of one step (convolutions, matmuls
-and their backward); ``..._incl_kernels`` adds the five kernels' function
+and their backward); ``..._incl_kernels`` adds the kernels' function
 counts (``benchlib.step_flops``). ``mfu`` divides the step's FLOPs per
 second by the card's dense bfloat16 peak (``benchlib.BF16_PEAK_FLOPS``).
 Every expected kernel must launch the expected number of times per step
@@ -40,7 +40,9 @@ null: the CPU has no card peak.
 writes ``cap2det_tpu_torch/BASELINE_CPU.json`` (host, CPU model, date);
 ``vs_baseline`` divides by that file's rate, and is null, with the
 reason, where there is none. ``--e2e`` measures ``train()`` end to end
-over synthetic TFRecords, and the host pipeline's rate alone.
+over synthetic TFRecords, the first step's wait on the feed, and the host
+pipeline's rate alone, its records read by the host library's reader (as
+``train()`` reads them) and by the Python reader, in turns.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import json
 import math
 import os
 import socket
+import statistics
 import tempfile
 import time
 
@@ -99,12 +102,13 @@ train_config {
 """
 
 # Kernel launches of one step: Mixed_4e trainable runs K2 and Mixed_5a's
-# max-pool backward; the full freeze runs neither.
+# max-pool backward; the full freeze runs neither. The fused optimizer
+# updates every trainable leaf in one launch.
 LAUNCHES = {
     False: {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
-            "maxpool_grad": 2, "avgpool_grad": 1},
+            "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1},
     True: {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 0,
-           "maxpool_grad": 1, "avgpool_grad": 1},
+           "maxpool_grad": 1, "avgpool_grad": 1, "fused_optimizer": 1},
 }
 
 BASELINE_CPU_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -169,7 +173,7 @@ class BenchStep:
     on the placed batch and keeps the state and logs."""
 
     def __init__(self, shape, device, compute_dtype=torch.bfloat16,
-                 batch_size=None, keep_prob=0.5):
+                 batch_size=None, keep_prob=0.5, fused=None):
         from cap2det_tpu_torch.models import registry
         from cap2det_tpu_torch.train import trainer
         import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
@@ -187,7 +191,7 @@ class BenchStep:
                                         compute_dtype=compute_dtype,
                                         device=self.device)
         self.state, self.tx, _, self.mask = trainer.TrainState.create(
-            self.model, self.cfg.train_config, 0)
+            self.model, self.cfg.train_config, 0, fused=fused)
         self.step = trainer.make_train_step(self.model, self.tx,
                                             self.cfg.train_config, self.mask)
         self.batch = self.model.device_batch(host_batch(
@@ -330,10 +334,13 @@ def run_e2e(args):
     feed in its worker process, page-locked copies ahead of the step,
     the step), timed by a hook from step E2E_WARM to E2E_WARM +
     measure; and the host pipeline alone (in this process, the same
-    config and seed), its asymptote."""
+    config and seed), its asymptote, with the host library's record
+    reader and with the Python one in turns."""
+    from cap2det_tpu_torch import native
     from cap2det_tpu_torch.config import schema
     from cap2det_tpu_torch.data import pipeline as pipeline_lib
-    from cap2det_tpu_torch.data import synthetic
+    from cap2det_tpu_torch.data import synthetic, tfrecord
+    from cap2det_tpu_torch.kernels import build
     from cap2det_tpu_torch.text import extractors
     from cap2det_tpu_torch.train import trainer
 
@@ -368,22 +375,40 @@ def run_e2e(args):
                                         pipeline_text(label_file))))
         object.__setattr__(cfg.train_config, "log_step_count_steps", 10 ** 9)
 
-        pipe = pipeline_lib.build_input_pipeline(
-            cfg.train_reader, seed=1,
-            label_extractor=extractors.build_label_extractor(
-                cfg.model.cap2det_model.label_extractor))
-        it = iter(pipe)
-        for _ in range(E2E_HOST_WARM):
-            next(it)
-        t0 = time.perf_counter()
-        for _ in range(E2E_HOST_BATCHES):
-            next(it)
-        host_rate = BATCH * E2E_HOST_BATCHES / (time.perf_counter() - t0)
-        del it, pipe
+        def host_rate():
+            pipe = pipeline_lib.build_input_pipeline(
+                cfg.train_reader, seed=1,
+                label_extractor=extractors.build_label_extractor(
+                    cfg.model.cap2det_model.label_extractor))
+            it = iter(pipe)
+            try:
+                for _ in range(E2E_HOST_WARM):
+                    next(it)
+                t0 = time.perf_counter()
+                for _ in range(E2E_HOST_BATCHES):
+                    next(it)
+                return BATCH * E2E_HOST_BATCHES / (time.perf_counter() - t0)
+            finally:
+                it.close()
+
+        # The feed alone in this process, reading its records through the
+        # host library (as train() does) and through the Python reader,
+        # in turns.
+        readers = {"native": native.read_records_native,
+                   "python": lambda path: tfrecord.read_records(path)}
+        host_rates = {"native": [], "python": []}
+        for name in ("native", "python", "python", "native"):
+            native.read_records_native = readers[name]
+            try:
+                host_rates[name].append(host_rate())
+            finally:
+                native.read_records_native = readers["native"]
 
         marks = {}
 
         def hook(step, state, logs):
+            if step == 1:
+                marks["first_wait_s"] = logs["input/wait_sec"]
             if step in (E2E_WARM, E2E_WARM + measure):
                 loss = float(logs["loss/total_loss"])  # waits for the step
                 benchlib.synchronize(device)
@@ -402,14 +427,26 @@ def run_e2e(args):
         "metric": "cap2det_e2e_train_images_per_sec",
         "value": BATCH * measure / (t_b - t_a), "unit": "images/sec",
         "min_dimension": args.e2e_min_dim,
-        "host_pipeline_images_per_sec": host_rate,
+        "host_pipeline_images_per_sec": statistics.median(
+            host_rates["native"]),
+        "host_pipeline_python_reader_images_per_sec": statistics.median(
+            host_rates["python"]),
+        "host_pipeline_turns": host_rates,
+        "record_reader": "native.read_records_native",
+        "host_library_s": build.host_build_info.get("seconds"),
+        "host_library_built": build.host_build_info.get("built"),
+        "first_step_wait_s": marks["first_wait_s"],
         "host_workers": max(1, min(
             cfg.train_reader.cap2det_reader.map_num_parallel_calls,
             os.cpu_count() or 1)),
         "steps_measured": measure, "launches": launches,
         "note": "e2e = the feed in its worker process + page-locked copies "
                 "ahead of the step + the step, steps %d-%d on the host "
-                "clock; host_pipeline is the feed alone in this process"
+                "clock; host_pipeline is the feed alone in this process, "
+                "its records read by the host library's reader as train() "
+                "reads them (the Python reader's rate beside it, in turns "
+                "native, python, python, native); first_step_wait_s is the "
+                "first step's wait on the worker"
                 % (E2E_WARM + 1, E2E_WARM + measure),
         **fields,
     }

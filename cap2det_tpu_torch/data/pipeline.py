@@ -16,6 +16,13 @@ As in the JAX package (reference readers/cap2det_reader.py:19-269):
     batch decisions) drawn in the same order, so both packages give the
     same batches from the same records and seed.
 
+Records are read by the host library's TFRecord reader
+(``native.read_records_native``, buffered with a readahead thread), as
+the JAX feed reads them whenever its native library is built; the port
+has no quiet fallback to the Python reader: a library that cannot be
+built raises, and ``in_worker_process`` builds it before it starts its
+worker.
+
 The resize is cv2's fixed-point INTER_LINEAR for uint8 images, written as
 integer tensor arithmetic on whatever device the image lies on, so a
 canvas equals the JAX package's (``cv2.resize``) bit for bit. The feed
@@ -41,6 +48,7 @@ import threading
 import numpy as np
 import torch
 
+from cap2det_tpu_torch import native
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import augment, png, tf_example, tfrecord
 from cap2det_tpu_torch.fields import InputFields, TFExampleFields
@@ -406,7 +414,7 @@ class InputPipeline:
                 rng.shuffle(ordered)
             yielded = 0
             for path in ordered:
-                for record in tfrecord.read_records(path):
+                for record in native.read_records_native(path):
                     example = parse_example(record, self.options.decode_image)
                     if self._shard is not None:
                         numer, denom = self._shard
@@ -731,8 +739,13 @@ def in_worker_process(pipe, device):
     pools, with as many intra-op threads as the caller has. A batch's
     canvas, where it has one, arrives as a CPU tensor in shared memory;
     for a CUDA `device` a thread of the caller's copies it into
-    page-locked memory. The other fields are the pipeline's. Closing the generator stops the worker."""
+    page-locked memory. The other fields are the pipeline's. Closing the generator stops the worker.
+
+    The host library the feed reads records with is loaded here first, so
+    that a build at first use happens once, in this process, and the
+    worker only loads it."""
     device = torch.device(device)
+    native.load()
     loader = torch.utils.data.DataLoader(
         _Batches(pipe), batch_size=None, num_workers=1, prefetch_factor=2,
         multiprocessing_context="spawn", collate_fn=_as_is,

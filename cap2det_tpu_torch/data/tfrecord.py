@@ -5,9 +5,12 @@ Record layout:
   uint64 length | uint32 masked_crc32c(length) | bytes data |
   uint32 masked_crc32c(data)
 
-Records are read in pure Python; readers verify CRCs optionally (off by
-default for speed). Writers always emit valid CRCs so files interoperate
-with TensorFlow tooling and with the JAX package's reader.
+``read_records`` reads records in pure Python, for the tools and tests;
+the training feed (``data/pipeline.py``) reads through the host library's
+reader, ``native.read_records_native``, which yields the same bytes.
+Readers verify CRCs optionally (off by default for speed). Writers always
+emit valid CRCs so files interoperate with TensorFlow tooling and with
+the JAX package's reader.
 """
 
 from __future__ import annotations

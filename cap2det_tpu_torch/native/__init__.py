@@ -3,21 +3,23 @@ of ``cap2det_tpu/native/__init__.py``).
 
 ``libcap2det_host.so`` carries selective-search region proposals and the
 Felzenszwalb segmentation under them (``csrc/host/selective_search.cc``,
-the port's copy of ``native/selective_search.cc``). It replaces the
-OpenCV ximgproc dependency of the reference's offline tools, runs on the
-host and is built by the host C++ compiler at first use
-(``kernels/build.host_library``). There is no fallback: a library that
-cannot be built raises.
+the port's copy of ``native/selective_search.cc``), which replace the
+OpenCV ximgproc dependency of the reference's offline tools, and the
+TFRecord reader the training feed reads every record with
+(``csrc/host/tfrecord_reader.cc``, the port's copy of
+``native/tfrecord_reader.cc``: buffered IO, a slice-by-8 CRC32C and a
+readahead thread). It runs on the host and is built by the host C++
+compiler at first use (``kernels/build.host_library``). There is no
+fallback: a library that cannot be built raises.
 
 Not carried over: ``pack_s2d`` (``native/image_pack.cc``) packs the TPU's
-space-to-depth canvas, a layout the port does not use; and
-``read_records_native`` (``native/tfrecord_reader.cc``) is a fast path of
-a reader the port has in Python (``data/tfrecord.py``).
+space-to-depth canvas, a layout the port does not use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 
 import numpy as np
@@ -47,6 +49,13 @@ def load():
             _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int),
         ]
+        lib.tfr_open.restype = ctypes.c_void_p
+        lib.tfr_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+        lib.tfr_next.restype = ctypes.c_long
+        lib.tfr_next.argtypes = [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))]
+        lib.tfr_close.restype = None
+        lib.tfr_close.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -87,3 +96,25 @@ def felzenszwalb(image, k=100.0, min_size=20):
         image.ctypes.data_as(_U8P), h, w, float(k), min_size,
         labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     return labels
+
+
+def read_records_native(path, verify_crc=False, readahead=True):
+    """Yields the raw records of one TFRecord file, read by the host
+    library: buffered, with a thread reading ahead when `readahead`.
+    Raises IOError on a file it cannot open, a truncated record or, with
+    `verify_crc`, a CRC that does not match."""
+    lib = load()
+    handle = lib.tfr_open(os.fsencode(path), int(verify_crc), int(readahead))
+    if not handle:
+        raise IOError("cannot open %s" % path)
+    try:
+        ptr = _U8P()
+        while True:
+            n = lib.tfr_next(handle, ctypes.byref(ptr))
+            if n == -1:
+                return
+            if n < 0:
+                raise IOError("corrupt TFRecord in %s" % path)
+            yield ctypes.string_at(ptr, n)
+    finally:
+        lib.tfr_close(handle)

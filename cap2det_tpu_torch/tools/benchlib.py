@@ -18,9 +18,9 @@ clock alone, and the result says so.
 
 ``step_flops`` counts a call's floating-point operations: convolutions,
 matmuls and their backward through ``torch.utils.flop_counter``, plus the
-five hand-written kernels' own counts (``kernels/roi_pool.py``,
-``kernels/pool_grad.py``), which the counter cannot see inside a ctypes
-launch. This counts; it computes nothing.
+hand-written kernels' own counts (``kernels/roi_pool.py``,
+``kernels/pool_grad.py``, ``kernels/fused_optimizer.py``), which the
+counter cannot see inside a ctypes launch. This counts; it computes nothing.
 """
 
 from __future__ import annotations
@@ -206,8 +206,8 @@ def busy_share(trace):
 
 def _kernel_flop_counts():
     """(name, module, attribute, flops of one call from its bound
-    arguments) of the five kernel wrappers."""
-    from cap2det_tpu_torch.kernels import pool_grad, roi_pool
+    arguments) of the kernel wrappers."""
+    from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
 
     def k1(features, boxes, crop_size, pool_kernel, pool_stride, **_):
         return roi_pool.forward_flops(boxes.shape[0], boxes.shape[1],
@@ -231,6 +231,9 @@ def _kernel_flop_counts():
         ("avgpool_grad", pool_grad, "avgpool_grad",
          lambda x_shape, dtype, g, kernel, stride: pool_grad.
          avgpool_grad_flops(tuple(x_shape), kernel, stride)),
+        ("fused_optimizer", fused_optimizer, "fused_update",
+         lambda rule, leaf_set, clip_norm, **_: fused_optimizer.update_flops(
+             rule, leaf_set, clip_norm is not None)),
     ]
 
 

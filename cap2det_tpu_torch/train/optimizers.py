@@ -17,6 +17,15 @@ as plain tensor arithmetic on the trainable leaves, updated in place:
   * parameter moving averages.
 
 Per leaf the order is the JAX package's: multiplier, clip, then the rule.
+
+``build_optimizer`` returns, as JAX's does by default, the fused
+optimizer (``FusedOptimizer``): the same chain over one flat float32
+vector of the trainable leaves, with each slot kept in one flat buffer
+(JAX's ``_fused_flat_transform``). On the card it is one launch of
+``csrc/fused_optimizer.cu`` a step (two with clipping), through
+``kernels/fused_optimizer.py``; on the CPU it runs that module's plain
+version, which gives the per-leaf chain's bits. ``fused=False`` returns
+the per-leaf chain (``Optimizer``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import math
 import torch
 
 from cap2det_tpu_torch.config import schema
+from cap2det_tpu_torch.kernels import fused_optimizer
 
 
 def flatten_params(params, prefix=""):
@@ -98,23 +108,27 @@ class BaseRule:
         self.which = which or "sgd"
         self.config = config
 
-    def init(self, leaf):
-        c, z = self.config, torch.zeros_like(leaf, dtype=torch.float32)
+    def slot_names(self):
+        """The names of the slots ``init`` makes, in its order."""
+        c = self.config
         if self.which == "adagrad":
-            return {"sum_of_squares": torch.full_like(
-                z, c.initial_accumulator_value)}
+            return ("sum_of_squares",)
         if self.which == "adam":
-            return {"mu": z, "nu": z.clone()}
+            return ("mu", "nu")
         if self.which == "rmsprop":
-            slots = {"nu": z}
-            if c.centered:
-                slots["mu"] = z.clone()
-            if c.momentum > 0:
-                slots["trace"] = z.clone()
-            return slots
+            return (("nu",) + (("mu",) if c.centered else ())
+                    + (("trace",) if c.momentum > 0 else ()))
         if self.which == "momentum":
-            return {"trace": z}
-        return {}
+            return ("trace",)
+        return ()
+
+    def init(self, leaf):
+        """Float32 slots shaped as `leaf`: Adagrad's accumulator starts at
+        initial_accumulator_value, every other slot at 0."""
+        value = (self.config.initial_accumulator_value
+                 if self.which == "adagrad" else 0.0)
+        return {name: torch.full_like(leaf, value, dtype=torch.float32)
+                for name in self.slot_names()}
 
     def update(self, g, slots, lr, count):
         c = self.config
@@ -128,8 +142,12 @@ class BaseRule:
             mu = (1 - c.beta1) * g + c.beta1 * slots["mu"]
             nu = (1 - c.beta2) * (g * g) + c.beta2 * slots["nu"]
             slots["mu"], slots["nu"] = mu, nu
-            mu_hat = mu / (1 - c.beta1 ** (count + 1))
-            nu_hat = nu / (1 - c.beta2 ** (count + 1))
+            # Divided by a tensor: on CUDA a Python-scalar divisor is a
+            # product with its reciprocal, one ulp off IEEE division.
+            mu_hat = mu / torch.full((), 1 - c.beta1 ** (count + 1),
+                                     device=mu.device)
+            nu_hat = nu / torch.full((), 1 - c.beta2 ** (count + 1),
+                                     device=nu.device)
             return (mu_hat / (torch.sqrt(nu_hat) + c.epsilon)) * -lr
         if self.which == "rmsprop":
             nu = (1 - c.decay) * (g * g) + c.decay * slots["nu"]
@@ -202,13 +220,97 @@ class Optimizer:
         return {"count": state["count"] + 1, "slots": state["slots"]}
 
 
+class FusedOptimizer(Optimizer):
+    """The chain over one flat float32 vector of the trainable leaves (the
+    JAX package's default, ``_fused_flat_transform``): the multiplier and
+    the clip per leaf, then the rule once over all of them, each slot one
+    flat buffer. ``init`` and ``apply`` keep ``Optimizer``'s contract and
+    state layout: every slot tensor of the state is a view into its flat
+    buffer, so checkpoints, broadcasts and readers of the state see
+    per-leaf tensors. A state whose slots are not views of one flat buffer
+    per name (a restored checkpoint, another optimizer's state) is packed
+    into new buffers at its first ``apply``, which returns the views. The
+    params' pointers are read from the leaves at every call."""
+
+    def __init__(self, rule, schedule, multipliers, clip_norm, leaf_set):
+        super().__init__(rule, schedule, multipliers, clip_norm)
+        self.leaf_set = leaf_set
+        self._keys = [path.split("/") for path in leaf_set.paths]
+
+    def _views(self, flat):
+        ls = self.leaf_set
+        return {path: {name: buf[off:off + n].view(shape)
+                       for name, buf in flat.items()}
+                for path, shape, off, n in zip(ls.paths, ls.shapes,
+                                               ls.offsets, ls.numels)}
+
+    def _new_flat(self, device):
+        return self.rule.init(torch.empty(self.leaf_set.total,
+                                          dtype=torch.float32, device=device))
+
+    def init(self, params):
+        device = (self._leaves(params)[0].device if self.leaf_set.paths
+                  else torch.device("cpu"))
+        return {"count": 0, "slots": self._views(self._new_flat(device))}
+
+    def _leaves(self, params):
+        out = []
+        for keys in self._keys:
+            node = params
+            for key in keys:
+                node = node[key]
+            out.append(node)
+        return out
+
+    def _flat_slots(self, slots, device):
+        """({name: flat buffer}, the state's slots as views of them),
+        packing `slots` into new buffers on `device` unless each name's
+        tensors are all views of one [total] float32 buffer there."""
+        paths, flat = self.leaf_set.paths, {}
+        for name in self.rule.slot_names():
+            base = slots[paths[0]][name]._base
+            if (base is None or base.device != device
+                    or base.dtype != torch.float32
+                    or base.shape != (self.leaf_set.total,)
+                    or any(slots[p][name]._base is not base for p in paths)):
+                break
+            flat[name] = base
+        else:
+            return flat, slots
+        flat = self._new_flat(device)
+        views = self._views(flat)
+        for path, named in views.items():
+            for name, view in named.items():
+                view.copy_(slots[path][name])
+        return flat, views
+
+    @torch.no_grad()
+    def apply(self, params, grads, state):
+        """params += update(grads), in place; `grads` maps each trainable
+        path to its gradient. Returns the new state, whose slots are views
+        of the flat buffers the update wrote in place."""
+        count = state["count"]
+        slots = state["slots"]
+        if self.leaf_set.paths:
+            leaves = self._leaves(params)
+            flat, slots = self._flat_slots(slots, leaves[0].device)
+            fused_optimizer.fused_update(
+                self.rule, self.leaf_set, leaves,
+                [grads[path] for path in self.leaf_set.paths], flat,
+                self.schedule(count), count, self.clip_norm)
+        return {"count": count + 1, "slots": slots}
+
+
 def build_optimizer(train_config: schema.TrainConfig, params,
-                    non_trainable_paths=(), non_trainable_substrings=()):
+                    non_trainable_paths=(), non_trainable_substrings=(),
+                    fused=None):
     """Builds (optimizer, trainable_mask, schedule) for a params tree.
 
     trainable_mask is a nested dict of bools shaped like params: a leaf is
     frozen when a gradient multiplier of 0.0 resolves for its path or the
-    model marks it non-trainable, by path prefix or substring.
+    model marks it non-trainable, by path prefix or substring. The
+    optimizer is a ``FusedOptimizer`` unless `fused` is False (None means
+    fused, as in JAX), then the per-leaf ``Optimizer``.
     """
     schedule = build_learning_rate_schedule(train_config)
     rule = build_base_optimizer(train_config.optimizer)
@@ -226,8 +328,19 @@ def build_optimizer(train_config: schema.TrainConfig, params,
     if (train_config.has_field("max_gradient_norm")
             and train_config.max_gradient_norm > 0):
         clip_norm = train_config.max_gradient_norm
-    return (Optimizer(rule, schedule, multipliers, clip_norm),
-            unflatten(mask), schedule)
+    if fused is None:
+        fused = True
+    if not fused:
+        opt = Optimizer(rule, schedule, multipliers, clip_norm)
+    else:
+        leaves = [(path, leaf) for path, leaf in flatten_params(params)
+                  if path in multipliers]
+        opt = FusedOptimizer(rule, schedule, multipliers, clip_norm,
+                             fused_optimizer.LeafSet(
+                                 [p for p, _ in leaves],
+                                 [leaf.shape for _, leaf in leaves],
+                                 [multipliers[p] for p, _ in leaves]))
+    return opt, unflatten(mask), schedule
 
 
 def ema_init(params):

@@ -12,7 +12,10 @@ A step: seed a generator from (seed, step) -> ``model.loss`` -> gradients
 of the trainable leaves only (frozen leaves have ``requires_grad=False``,
 so autograd never builds their cone: under a full first-stage freeze no
 ROI backward runs) -> in a process group, the gradients and losses
-averaged across the ranks -> the optimizer updates the params in place.
+averaged across the ranks -> the optimizer updates the params in place
+(by default the fused one: one kernel launch over every trainable leaf,
+``kernels/fused_optimizer.py``; a restored checkpoint's slots are packed
+into its flat buffers at the first update).
 
 Data parallelism is one process per card in a ``torch.distributed``
 group (``parallel/distributed.py``): the JAX trainer's multi-host mesh,
@@ -51,15 +54,18 @@ class TrainState:
     and ema when moving averages are enabled."""
 
     @staticmethod
-    def create(model, train_config, seed):
+    def create(model, train_config, seed, fused=None):
         """(state, optimizer, schedule, trainable_mask) with fresh params
-        from `seed`, each leaf's requires_grad set from the mask."""
+        from `seed`, each leaf's requires_grad set from the mask. The
+        optimizer is the fused one unless `fused` is False
+        (``optimizers.build_optimizer``)."""
         params = model.init_params(seed)
         tx, mask, schedule = optimizers.build_optimizer(
             train_config, params,
             non_trainable_paths=model.non_trainable_paths,
             non_trainable_substrings=getattr(model,
                                              "non_trainable_substrings", ()),
+            fused=fused,
         )
         set_trainable(params, mask)
         state = {"params": params, "opt_state": tx.init(params), "step": 0}

@@ -38,6 +38,18 @@ Phases (any failure ends the run with a nonzero exit code):
      and PyTorch's pool backward, launched by the host (kernel_ms) and
      replayed from a CUDA graph (device_ms), and all through the tiled
      kernels;
+  6a. fused_optimizer: hold the fused optimizer kernel
+     (csrc/fused_optimizer.cu, one launch over every trainable leaf, two
+     with per-leaf clipping) against its plain flat version at the
+     trainable sets of coco17_extend_match (62 leaves, 7,417,427 params)
+     and voc07_inc2 (48, 6,002,951), its gradients channels-last where a
+     convolution's are, for sgd, adagrad, adam, rmsprop (plain, centered
+     with momentum), momentum and nesterov, with and without clipping,
+     over 10 chained updates: bit for bit without clipping, within
+     FUSED_CLIP_ULPS of each leaf's scale with it (the norm's sum order);
+     the shipped update (Adagrad) timed from a CUDA graph and from the
+     host beside its byte bound, the plain flat version and the per-leaf
+     chain;
   7. train at configs/coco17_extend_match.pbtxt width (batch 2, 1024x1536
      canvases, P=500, 80 classes, Mixed_4e unfrozen, Adagrad): 3 warm-up
      and 12 timed steps, launch counts per step, finite losses, frozen
@@ -47,7 +59,9 @@ Phases (any failure ends the run with a nonzero exit code):
   9. bench: the measuring tools on the card, each a process of its own
      (python -m cap2det_tpu_torch.bench --shape bench, --shape inc2,
      --e2e; tools.bench_eval --examples 8; tools.profile_step --steps
-     8 --convs; tools.bench_components; tools.bench_backbone_parts),
+     8 --convs; tools.bench_components; tools.bench_backbone_parts;
+     tools.bench_opt_ab --variant both, the fused optimizer against the
+     per-leaf chain in turns),
      their JSON lines printed and checked: every number finite, mfu in
      (0, 1], the launches per step of phases 7 and 8 (and of train()
      under --e2e), the card's name and power limit on every line,
@@ -63,8 +77,9 @@ Phases (any failure ends the run with a nonzero exit code):
  11. train_loop: train() from PNG TFRecords written here, at
      configs/coco17_extend_match.pbtxt as shipped, through all eight
      canvas buckets (1216x1824 ... 416x608, both orientations), launches
-     per step K1 1, K4 3, K2 1, K5 2, K6 1, per-bucket step and feed-wait
-     medians, peak memory; a second train() restores the final checkpoint
+     per step K1 1, K4 3, K2 1, K5 2, K6 1 and the fused optimizer 1,
+     per-bucket step and feed-wait medians, the feed's record reader (the
+     host library's) and its first step's wait, peak memory; a second train() restores the final checkpoint
      bit for bit and trains on. Also says whether Pillow imports;
  12. eval_daemon: continuous_evaluation(evaluate_all=True) at
      configs/voc07_inc2.pbtxt width (4 scales, P=2000, 20 classes, 3 OICR
@@ -83,7 +98,8 @@ Phases (any failure ends the run with a nonzero exit code):
      coco_open_vocab.txt with a seeded [7379, 300] stand-in for its GloVe
      table, hidden 400, 80 classes, batch 20, dropout 0.5) over 400 seeded
      text-only records: train() for 300 steps, three checkpoints, then
-     continuous_evaluation over them; no kernel launches; step times, the
+     continuous_evaluation over them; no kernel launches but the fused
+     optimizer's, one a step; step times, the
      feed's wait, peak memory, the loss falling, P/R and seconds per
      checkpoint; card vs CPU float32 logits of one batch, and the
      dropout's division by 0.5 and 0.7 bit for bit;
@@ -91,7 +107,8 @@ Phases (any failure ends the run with a nonzero exit code):
      configs/coco17_text_classifier_match.pbtxt as shipped, its text
      classifier warm-started from phase 14's model_dir, over train_loop's
      records plus records whose captions name only synonyms: launches per
-     step K1 1, K4 3, K2 1, K5 2, K6 1 through at least two canvas
+     step K1 1, K4 3, K2 1, K5 2, K6 1, the fused optimizer 1, through at
+     least two canvas
      buckets, step medians, peak memory, the images labelled beyond an
      exact match, the extractor's labels on the card against the CPU's
      (every flip with its margin); then a few steps of
@@ -101,7 +118,8 @@ Phases (any failure ends the run with a nonzero exit code):
      process: (a) one float32 step, dropout off, on each rank's half of a
      seeded global batch of 4 against this process's step on the whole
      batch (params, Adagrad accumulators, loss), launches per rank K1 1,
-     K4 3, K2 1, K5 2, K6 1, the kernels built by both ranks at once from
+     K4 3, K2 1, K5 2, K6 1, the fused optimizer 1, the kernels built by
+     both ranks at once from
      a clean directory, step times with and without the all-reduce and
      its bytes; (b) a group of one in NCCL steps as no group, bit for
      bit; (c) train() over train_loop's records on two ranks: launches
@@ -120,7 +138,8 @@ Phases (any failure ends the run with a nonzero exit code):
      TensorFlow V1 and V2 fixtures converted with no tensorflow imported;
      train() at configs/coco17_extend_match.pbtxt for 12 steps over those
      records from the passthrough backbone (launches per step K1 1, K4 3,
-     K2 1, K5 2, K6 1, step medians, peak memory); one COCO evaluation of
+     K2 1, K5 2, K6 1, the fused optimizer 1, step medians, peak memory);
+     one COCO evaluation of
      its last checkpoint; then the three dataset builders
      (python -m cap2det_tpu_torch.scripts.build_{coco,voc,flickr30k}_dataset,
      two selective-search processes each, each from a working directory
@@ -134,7 +153,8 @@ Phases (any failure ends the run with a nonzero exit code):
      flickr30k_text_classifier_match, the last with a stand-in table and
      a text classifier checkpoint written here) take two steps each at
      their shipped widths from a seeded batch; each keeps Mixed_4e
-     trainable, so every step launches K1 1, K4 3, K2 1, K5 2, K6 1;
+     trainable, so every step launches K1 1, K4 3, K2 1, K5 2, K6 1 and
+     the fused optimizer 1;
      losses, step times, peak memory;
  19. scripts: python -m cap2det_tpu_torch.scripts.quality_run at a cut
      size (24 scenes, 500 steps, selective search in 4 processes) on the
@@ -152,6 +172,10 @@ Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 ``python3 chip_smoke.py --profile`` also reads one image's device kernel
 time and busy share with torch.profiler, and the training step's busy
 share from a trace of train_loop's steps.
+
+The kernels line's fused_optimizer row gives the kernel's time replayed
+from a CUDA graph as "ms" (launched from the host, the wrapper's Python
+checks of 62 leaves take longer than the kernel; both are printed).
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -221,7 +245,7 @@ VOC_POOL_SHAPES = [(name + " N=2000", kind, k, s, (2000,) + shape[1:])
 # index_add_ there.
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 1e-4)}
 KERNELS = ("roi_crop_maxpool", "pool_fwd", "roi_crop_maxpool_grad",
-           "maxpool_grad", "avgpool_grad")
+           "maxpool_grad", "avgpool_grad", "fused_optimizer")
 # train() steps of the train_loop phase: enough for its seeded stream to
 # reach all eight coco17 canvas buckets.
 TRAIN_LOOP_STEPS = 40
@@ -256,8 +280,9 @@ POOL_GRAD_PATHS = ("maxpool_grad_tiled_launches",
 
 
 def reset_launch_counts():
-    from cap2det_tpu_torch.kernels import pool_grad, roi_pool
+    from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
 
+    fused_optimizer.launches = 0
     roi_pool.launches = roi_pool.grad_launches = 0
     roi_pool.staged_launches = roi_pool.generic_launches = 0
     roi_pool.grad_staged_launches = roi_pool.grad_generic_launches = 0
@@ -979,6 +1004,177 @@ def phase_pool_grad(torch):
     return totals["maxpool_grad"], totals["avgpool_grad"]
 
 
+# Phase 6a: the fused optimizer at the trainable sets of the two training
+# regimes the main path runs (62 leaves of coco17_extend_match with
+# Mixed_4e, 48 of voc07_inc2's full freeze), every optimizer kind with and
+# without per-leaf clipping, FUSED_UPDATES chained updates.
+FUSED_SETS = [  # (tag, config, trainable leaves, parameters)
+    ("coco17", "coco17_extend_match.pbtxt", 62, 7417427),
+    ("inc2", "voc07_inc2.pbtxt", 48, 6002951),
+]
+FUSED_OPTIMIZERS = {
+    "sgd": "sgd {}",
+    "adagrad": "adagrad { initial_accumulator_value: 0.1 }",
+    "adam": "adam { beta1: 0.8 beta2: 0.99 epsilon: 0.001 }",
+    "rmsprop": "rmsprop { decay: 0.9 epsilon: 0.01 }",
+    "rmsprop_centered_momentum": ("rmsprop { decay: 0.9 epsilon: 0.01 "
+                                  "centered: true momentum: 0.5 }"),
+    "momentum": "momentum { momentum: 0.9 }",
+    "nesterov": "momentum { momentum: 0.9 use_nesterov: true }",
+}
+FUSED_UPDATES = 10
+FUSED_CLIP = 0.5  # most leaves' gradient norms exceed it
+# Every kind equals its plain version bit for bit without clipping. With
+# it, a leaf's norm is summed in another order than torch.sum's, so the
+# factor may differ in its last bits: params and slots within this many
+# ulps of each leaf's largest magnitude.
+FUSED_CLIP_ULPS = 8.0
+
+
+def fused_gradients(torch, leaf_set, generator):
+    """Seeded float32 gradients of the leaf set, those of kernels wider
+    than 1x1 channels-last, as cuDNN returns a convolution's weight
+    gradient."""
+    out = []
+    for shape in leaf_set.shapes:
+        g = torch.randn(shape, generator=generator, device="cuda")
+        if len(shape) == 4 and shape[2] * shape[3] > 1:
+            g = g.contiguous(memory_format=torch.channels_last)
+        out.append(g)
+    return out
+
+
+def phase_fused_optimizer(torch):
+    """The fused optimizer kernel (csrc/fused_optimizer.cu) against its
+    plain version (fused_update_reference) at both trainable sets, for all
+    seven kinds with and without clipping over FUSED_UPDATES chained
+    updates; then the shipped update (Adagrad, no clipping) timed: the
+    kernel replayed from a CUDA graph (its time on the card) and launched
+    from the host (what a step pays), the plain flat version and the
+    per-leaf chain, beside the bound. Returns coco17's row of the kernels
+    line."""
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.kernels import fused_optimizer
+    from cap2det_tpu_torch.models import registry
+    from cap2det_tpu_torch.train import optimizers
+    import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
+
+    rows = {}
+    max_err = 0.0
+    for tag, config, want_leaves, want_params in FUSED_SETS:
+        cfg = schema.load_pipeline(os.path.join("configs", config))
+        model = registry.build(cfg.model, is_training=True,
+                               compute_dtype=torch.bfloat16)
+        params = model.init_params(SEED)
+        shipped, _, _ = optimizers.build_optimizer(
+            cfg.train_config, params, model.non_trainable_paths,
+            getattr(model, "non_trainable_substrings", ()))
+        ls = shipped.leaf_set
+        if (len(ls.paths), ls.total) != (want_leaves, want_params):
+            raise AssertionError("fused_optimizer: %s has %d trainable "
+                                 "leaves, %d params; expected %d, %d" % (
+                                     tag, len(ls.paths), ls.total,
+                                     want_leaves, want_params))
+        leaves = dict(optimizers.flatten_params(params))
+        init = [leaves[p].detach().clone() for p in ls.paths]
+        del model, params, leaves
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        grads = [fused_gradients(torch, ls, gen)
+                 for _ in range(FUSED_UPDATES)]
+        log("fused_optimizer: %s: %d leaves, %d params, %d launch "
+            "group(s), %d chunks of at most %d; %d of %d gradients "
+            "channels-last" % (
+                tag, len(ls.paths), ls.total, len(ls.groups),
+                sum(len(g[2]) for g in ls.groups), fused_optimizer.CHUNK,
+                sum(not g.is_contiguous() for g in grads[0]), len(ls.paths)))
+        for kind, text in FUSED_OPTIMIZERS.items():
+            rule = optimizers.build_base_optimizer(schema.loads_pipeline(
+                "train_config { optimizer { %s } }" % text
+            ).train_config.optimizer)
+            for clip in (None, FUSED_CLIP):
+                runs = []
+                for fn in (fused_optimizer.fused_update,
+                           fused_optimizer.fused_update_reference):
+                    ps = [p.clone() for p in init]
+                    slots = rule.init(torch.empty(ls.total, device="cuda"))
+                    before = fused_optimizer.launches
+                    for count, g in enumerate(grads):
+                        fn(rule, ls, ps, g, slots, 0.01 * 0.5 ** (count // 4),
+                           count, clip)
+                    torch.cuda.synchronize()
+                    runs.append((ps, slots,
+                                 fused_optimizer.launches - before))
+                (got, got_slots, launched), (want, want_slots, _) = runs
+                if launched != FUSED_UPDATES * (1 + (clip is not None)):
+                    raise AssertionError("fused_optimizer: %d launches for "
+                                         "%d updates" % (launched,
+                                                         FUSED_UPDATES))
+                gaps = [fused_optimizer.ulp_gap(a, b)
+                        for a, b in zip(got, want)]
+                slot_gaps = [fused_optimizer.ulp_gap(
+                    got_slots[name][off:off + n],
+                    want_slots[name][off:off + n])
+                    for name in want_slots
+                    for off, n in zip(ls.offsets, ls.numels)]
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                max_err = max(max_err, err)
+                limit = 0.0 if clip is None else FUSED_CLIP_ULPS
+                line = {"kernel": "fused_optimizer", "set": tag,
+                        "kind": kind, "clip": clip,
+                        "updates": FUSED_UPDATES,
+                        "max_ulp_gap_params": max(gaps),
+                        "max_ulp_gap_slots": max(slot_gaps, default=0.0),
+                        "leaves_not_bit_equal": sum(g > 0 for g in gaps),
+                        "max_abs_err": err, "limit_ulps": limit}
+                log(json.dumps(line))
+                if max(gaps + slot_gaps) > limit:
+                    raise AssertionError(
+                        "fused_optimizer: %s %s clip %s: params or slots "
+                        "%r ulps from the plain version, limit %r" % (
+                            tag, kind, clip, max(gaps + slot_gaps), limit))
+
+        # The shipped update timed: Adagrad, no clipping.
+        rule = shipped.rule
+        ps = [p.clone() for p in init]
+        slots = rule.init(torch.empty(ls.total, device="cuda"))
+        g = grads[0]
+        chain = optimizers.Optimizer(rule, lambda count: 0.01,
+                                     dict(zip(ls.paths, ls.multipliers)),
+                                     None)
+        chain_params = dict(zip(ls.paths, [p.clone() for p in init]))
+        chain_grads = dict(zip(ls.paths, g))
+        chain_state = chain.init(chain_params)
+
+        def kernel():
+            fused_optimizer.fused_update(rule, ls, ps, g, slots, 0.01, 0)
+
+        def plain():
+            fused_optimizer.fused_update_reference(rule, ls, ps, g, slots,
+                                                   0.01, 0, None)
+
+        def per_leaf():
+            chain.apply(chain_params, chain_grads, chain_state)
+
+        nbytes = fused_optimizer.update_bytes(len(rule.slot_names()),
+                                              ls.total)
+        b_ms, b_by = bound_ms(nbytes, fused_optimizer.update_flops(
+            rule, ls, False))
+        row = {"kernel": "fused_optimizer", "set": tag,
+               "kernel_ms": device_ms(kernel, iters=20),
+               "host_launched_ms": cuda_ms(kernel, iters=50),
+               "plain_ms": cuda_ms(plain, iters=20),
+               "per_leaf_ms": cuda_ms(per_leaf, iters=20),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "max_abs_err": max_err}
+        row["kernel_over_bound"] = row["kernel_ms"] / b_ms
+        log(json.dumps(row))
+        rows[tag] = row
+        del grads, init, ps, slots, chain_params, chain_state
+        torch.cuda.empty_cache()
+    return dict(rows["coco17"], max_abs_err=max_err)
+
+
 def train_batch(rng, batch, hw, num_p, num_classes, pad):
     """A seeded host training batch: uint8 canvases, proposals inside the
     image (the second image's last `pad` slots are zero padding), and
@@ -1006,7 +1202,7 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
     `breakdown` one more step timed by span. `text`, where given, is the
     config's text with its data files retargeted."""
     from cap2det_tpu_torch.config import schema
-    from cap2det_tpu_torch.kernels import pool_grad, roi_pool
+    from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
     from cap2det_tpu_torch.models import inception_v2, registry
     from cap2det_tpu_torch.train import optimizers, trainer
     import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
@@ -1031,10 +1227,27 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
             tag, batch_size, num_p, model.num_classes,
             sum(flat_mask.values()), len(flat_mask), schedule(0)))
 
+    # The layouts of the gradients the fused optimizer takes, read in the
+    # first warm-up step (untimed).
+    grad_layouts = {}
+    real_flags = fused_optimizer._grad_flags
+
+    def grad_flags(path, g, shape):
+        flags = real_flags(path, g, shape)
+        key = "channels-last" if flags[0] else "contiguous"
+        grad_layouts[key] = grad_layouts.get(key, 0) + 1
+        return flags
+
     losses = []
-    for _ in range(warmup):
-        state, logs = step(state, batch, SEED)
+    for i in range(warmup):
+        fused_optimizer._grad_flags = grad_flags if i == 0 else real_flags
+        try:
+            state, logs = step(state, batch, SEED)
+        finally:
+            fused_optimizer._grad_flags = real_flags
         losses.append(float(logs["loss/total_loss"]))
+    log("train %s: the trainable leaves' float32 gradients as the fused "
+        "optimizer takes them: %s" % (tag, json.dumps(grad_layouts)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1112,6 +1325,8 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
             (pool_grad, "maxpool_grad", "K5 (inside backward)"),
             (pool_grad, "avgpool_grad", "K6 (inside backward)"),
             (opt, "apply", "optimizer"),
+            (fused_optimizer, "fused_update",
+             "fused update (inside optimizer)"),
         ]
         with cuda_spans(torch, targets) as spans, \
                 pool_grad_layouts(pool_grad) as layouts:
@@ -1154,6 +1369,8 @@ BENCH_TOOLS = [  # (label, module, arguments)
      ["--steps", "4"]),
     ("bench_backbone_parts", "cap2det_tpu_torch.tools.bench_backbone_parts",
      ["--steps", "4"]),
+    ("bench_opt_ab", "cap2det_tpu_torch.tools.bench_opt_ab",
+     ["--variant", "both"]),
 ]
 
 
@@ -1261,6 +1478,24 @@ def phase_bench(torch, coco, coco_want, voc_want):
                             0.0 < share < 1.0):
         raise AssertionError("bench: bench_eval lines %s, NMS share %r"
                              % (sorted(metrics), share))
+    if e2e["record_reader"] != "native.read_records_native" or not (
+            e2e["host_pipeline_python_reader_images_per_sec"] > 0):
+        raise AssertionError("bench: e2e's feed: %s" % e2e)
+    log("bench: e2e's feed alone %.3f images/s through the host library's "
+        "reader, %.3f through the Python reader (in turns %s); the first "
+        "step waited %.3f s" % (
+            e2e["host_pipeline_images_per_sec"],
+            e2e["host_pipeline_python_reader_images_per_sec"],
+            json.dumps(e2e["host_pipeline_turns"]), e2e["first_step_wait_s"]))
+    *turns, ab = out["bench_opt_ab"]
+    ab_keys = ("opt_fused", "opt_unfused", "step_fused", "step_unfused")
+    if not all(ab.get(k, 0) > 0 for k in ab_keys) or len(turns) != 2 * ab[
+            "turns"]:
+        raise AssertionError("bench: bench_opt_ab printed %s" % ab)
+    log("bench: bench_opt_ab (medians of %d turns each, CUDA events): "
+        "optimizer %.4f ms fused, %.4f per leaf; step %.4f ms fused, %.4f "
+        "per leaf" % (ab["turns"], ab["opt_fused"], ab["opt_unfused"],
+                      ab["step_fused"], ab["step_unfused"]))
     summary = [line for line in out["bench_components"] if "summary" in line]
     parts = {line["part"] for line in out["bench_backbone_parts"]}
     if len(summary) != 1 or len(summary[0]["summary"]) != 16 or len(
@@ -1426,7 +1661,7 @@ def write_train_records(directory, num_examples, image_hw, seed):
 
 
 PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
-            "maxpool_grad": 2, "avgpool_grad": 1}
+            "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1}
 
 
 def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
@@ -1539,6 +1774,7 @@ def phase_train_loop(torch, profile, steps=TRAIN_LOOP_STEPS,
     trainable, Adagrad, dropout 0.5), its input pattern and model_dir in a
     temporary directory, logging and saving every few steps: every canvas
     bucket feeds a step, each step launches K1 1, K4 3, K2 1, K5 2, K6 1
+    and the fused optimizer 1
     (K1 and K2 staged), per-bucket step and feed-wait medians, peak
     memory. The same steps again, fed from the same batches made
     beforehand, say what the feed's thread adds to a step. Then a second
@@ -1613,6 +1849,16 @@ def phase_train_loop(torch, profile, steps=TRAIN_LOOP_STEPS,
             "launches %s (per step %s, K1 and K2 staged); peak memory %d "
             "bytes" % (steps, wall, len(buckets), json.dumps(launches),
                        json.dumps(PER_STEP), peak))
+        from cap2det_tpu_torch.kernels import build
+
+        log("train_loop: the feed read its records through "
+            "native.read_records_native (host library %s, %s in %.3f s in "
+            "this process before its worker started); the first step "
+            "waited %.3f s on the feed, its placing %.3f s" % (
+                build.host_build_info["key"],
+                "built" if build.host_build_info["built"] else "loaded",
+                build.host_build_info["seconds"], records[0]["wait"],
+                records[0]["place"]))
         fed = report_steps("feed", records, start, t_start, cfg.train_config)
         if profile:
             busy, window = busy_share(os.path.join(model_dir, "profile",
@@ -2088,9 +2334,13 @@ def phase_text_model(torch, directory):
         torch, trainer, cfg, model_dir, TEXT_STEPS)
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if any(launches.values()):
-        raise AssertionError("text_model: the text step launched %s"
-                             % launches)
+    # No kernel of the detector runs; the fused optimizer updates the
+    # classifier's leaves once a step.
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_optimizer"] = TEXT_STEPS
+    if launches != want:
+        raise AssertionError("text_model: the text step launched %s, "
+                             "expected %s" % (launches, want))
     losses = [float(r["loss"]) for r in records]
     if [r["step"] for r in records] != list(range(1, TEXT_STEPS + 1)) or (
             not np.all(np.isfinite(losses))):
@@ -2239,7 +2489,8 @@ def phase_text_cap2det(torch, directory, text_model_dir, emb_file):
     configs/coco17_text_classifier_match.pbtxt as shipped, its text
     classifier warm-started from the text_model phase's model_dir, over
     train_loop's PNG records plus records whose captions name only
-    synonyms: launches per step K1 1, K4 3, K2 1, K5 2, K6 1 through at
+    synonyms: launches per step K1 1, K4 3, K2 1, K5 2, K6 1 and the fused
+    optimizer 1 through at
     least two canvas buckets (counts set to 0 just before), step medians,
     peak memory; the images the classifier labelled beyond an exact
     match; the extractor's labels on the card against the CPU's. Then
@@ -2675,7 +2926,8 @@ def phase_dataset_build(torch):
     backbone (make_passthrough_checkpoint) and the committed TensorFlow V1
     and V2 fixtures converted without TensorFlow (convert_tf_checkpoint),
     then train() over the records from the passthrough backbone (launches
-    per step K1 1, K4 3, K2 1, K5 2, K6 1; counts set to 0 just before),
+    per step K1 1, K4 3, K2 1, K5 2, K6 1, the fused optimizer 1; counts
+    set to 0 just before),
     one COCO evaluation of its last checkpoint, and the three dataset
     builders held against those tools (check_dataset_builders). Returns
     the launches of that train()."""
@@ -3160,7 +3412,8 @@ def phase_data_parallel(torch):
           this process on the whole batch: params within DP_PARAM_TOL,
           Adagrad accumulators within DP_ACC_REL_TOL relative, loss within
           DP_LOSS_RTOL, both ranks' params bit for bit; launches per rank
-          K1 1, K4 3, K2 1, K5 2, K6 1 (counts set to 0 just before); the
+          K1 1, K4 3, K2 1, K5 2, K6 1, the fused optimizer 1 (counts set
+          to 0 just before); the
           kernels built by both ranks at once into a clean directory; step
           times on CUDA events with and without the all-reduce, the
           all-reduce's bytes and time; peak memory;
@@ -3357,7 +3610,8 @@ def phase_configs(torch, directory):
     NEVER_STEPPED at its shipped width (phase_train: batch 2, 1024x1536,
     P=500, seeded He weights and batch). Each keeps Mixed_4e trainable
     under the first stage's multiplier of 0.0, so every step must launch
-    K1 1, K4 3, K2 1, K5 2, K6 1 (PER_STEP; counts set to 0 just before
+    K1 1, K4 3, K2 1, K5 2, K6 1, the fused optimizer 1 (PER_STEP; counts
+    set to 0 just before
     the steps). flickr30k_text_classifier_match reads a seeded stand-in
     for its 300-d table and a text classifier checkpoint written here.
     Returns {config: phase_train's result}."""
@@ -3418,7 +3672,7 @@ GONE_SECS = 30.0
 # no K2, and K5 only for Mixed_5c.
 FROZEN_PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3,
                    "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
-                   "avgpool_grad": 1}
+                   "avgpool_grad": 1, "fused_optimizer": 1}
 
 
 def logged_launches(text, where):
@@ -3593,21 +3847,20 @@ def main(argv):
     phase_serve(torch, profile)
     k2 = phase_roi_grad(torch)
     k5, k6 = phase_pool_grad(torch)
+    torch.cuda.empty_cache()
+    fused = phase_fused_optimizer(torch)
+    torch.cuda.empty_cache()
     coco = phase_train(
         torch, "coco17_extend_match.pbtxt", batch_size=2, num_p=TRAIN_P,
         warmup=3, timed=12, breakdown=True,
-        want={"roi_crop_maxpool": 1, "pool_fwd": 3,
-              "roi_crop_maxpool_grad": 1, "maxpool_grad": 2,
-              "avgpool_grad": 1})
+        want=PER_STEP)
     torch.cuda.empty_cache()
     # Full first-stage freeze: the ROIs need no gradient, so neither K2
     # nor Mixed_5a's pool backward runs.
     phase_train(
         torch, "voc07_inc2.pbtxt", batch_size=1, num_p=2000, warmup=2,
         timed=5, breakdown=False,
-        want={"roi_crop_maxpool": 1, "pool_fwd": 3,
-              "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
-              "avgpool_grad": 1})
+        want=FROZEN_PER_STEP)
     torch.cuda.empty_cache()
     phase_bench(torch, coco, PER_STEP, FROZEN_PER_STEP)
     torch.cuda.empty_cache()
@@ -3639,7 +3892,7 @@ def main(argv):
         % json.dumps(eval_launches))
 
     # Launches: the train() run of the train_loop phase, the main path,
-    # which runs all five (the coco17 step phase, text_cap2det's and
+    # which runs all six (the coco17 step phase, text_cap2det's and
     # dataset_build's train() do too).
     if min(launches.values()) < 1 or min(coco["launches"].values()) < 1 or (
             min(text_launches.values()) < 1) or min(
@@ -3648,16 +3901,21 @@ def main(argv):
                              "%s" % (launches, coco["launches"],
                                      text_launches, dataset_launches))
     rows = [
-        ("roi_crop_maxpool", "roi_pool.cu", "roi_pool.py:1213", k1),
-        ("pool_fwd", "pool.cu", "pool_grad.py:350", k4),
-        ("roi_crop_maxpool_grad", "roi_pool_bwd.cu", "roi_pool.py:1458", k2),
-        ("maxpool_grad", "pool_grad.cu", "pool_grad.py:418", k5),
-        ("avgpool_grad", "pool_grad.cu", "pool_grad.py:235", k6),
+        ("roi_crop_maxpool", "roi_pool.cu", "kernels/roi_pool.py:1213", k1),
+        ("pool_fwd", "pool.cu", "kernels/pool_grad.py:350", k4),
+        ("roi_crop_maxpool_grad", "roi_pool_bwd.cu",
+         "kernels/roi_pool.py:1458", k2),
+        ("maxpool_grad", "pool_grad.cu", "kernels/pool_grad.py:418", k5),
+        ("avgpool_grad", "pool_grad.cu", "kernels/pool_grad.py:235", k6),
+        # No Pallas kernel: the JAX package's default flat update, which
+        # XLA fuses on the TPU.
+        ("fused_optimizer", "fused_optimizer.cu", "train/optimizers.py:184",
+         fused),
     ]
     kernels = [
         {"name": name, "route": "cuda",
          "source": "cap2det_tpu_torch/csrc/" + source,
-         "replaces": "cap2det_tpu/kernels/" + replaces,
+         "replaces": "cap2det_tpu/" + replaces,
          "launches": launches[name], "max_abs_err": r["max_abs_err"],
          "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

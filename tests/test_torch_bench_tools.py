@@ -6,6 +6,9 @@ the JAX tools' names (read from the root ``tools/`` files).
   with ``--device cpu`` and print the JAX tools' names, ``pallas`` read
   as ``kernel`` and ``xla`` as ``plain``; without a card and without
   ``--device cpu`` they raise.
+* ``bench_opt_ab`` with the root tool's flags, variants, shape, step
+  count variable and JSON keys, its arms in alternating turns, at a tiny
+  size on the CPU.
 * ``profile_step.aggregate`` on a chrome trace built here (kernels, a
   copy, nested host operations with known times) gives the stated
   per-kernel totals, busy share, gaps and the host operation open across
@@ -24,6 +27,7 @@ import json
 import os
 import re
 import subprocess
+import types
 from contextlib import redirect_stdout
 
 import pytest
@@ -31,7 +35,8 @@ import torch
 
 from cap2det_tpu_torch import bench
 from cap2det_tpu_torch.tools import (bench_backbone_parts, bench_components,
-                                     bench_eval, benchlib, profile_step)
+                                     bench_eval, bench_opt_ab, benchlib,
+                                     profile_step)
 
 torch.set_num_threads(1)
 
@@ -41,7 +46,8 @@ NEW_FILES = ["cap2det_tpu_torch/bench.py",
              "cap2det_tpu_torch/tools/bench_components.py",
              "cap2det_tpu_torch/tools/bench_backbone_parts.py",
              "cap2det_tpu_torch/tools/bench_eval.py",
-             "cap2det_tpu_torch/tools/profile_step.py"]
+             "cap2det_tpu_torch/tools/profile_step.py",
+             "cap2det_tpu_torch/tools/bench_opt_ab.py"]
 
 
 def _jax_source(name):
@@ -115,10 +121,52 @@ def test_bench_eval_prints_the_jax_metrics():
     assert lines[2]["largest_canvas"] == [64, 96]
 
 
+def test_bench_opt_ab_keeps_the_jax_tools_flags_and_keys(monkeypatch):
+    jax_source = _jax_source("bench_opt_ab.py")
+    for name in ("BATCH", "CANVAS_HW", "NUM_PROPOSALS", "NUM_CLASSES"):
+        (value,) = re.findall(r"^%s = (.+)$" % name, jax_source, re.M)
+        assert getattr(bench_opt_ab, name) == eval(value), name
+    assert re.findall(r'add_argument\("(--\w+)"', jax_source) == [
+        "--variant"]
+    (choices,) = re.findall(r'choices=\[(.*?)\]', jax_source)
+    variants = re.findall(r'"(\w+)"', choices)
+    assert variants == ["fused", "unfused", "both"]
+    assert 'os.environ.get("AB_STEPS", "8")' in jax_source
+    jax_keys = {prefix + name for prefix in re.findall(
+        r'results\["(\w+_)" \+ name\]', jax_source)
+        for name in variants[:2]}
+    assert jax_keys == {"opt_fused", "opt_unfused", "step_fused",
+                        "step_unfused"}
+
+    monkeypatch.setattr(bench_opt_ab, "CANVAS_HW", (64, 96))
+    monkeypatch.setattr(bench_opt_ab, "NUM_PROPOSALS", 16)
+    monkeypatch.setattr(bench_opt_ab, "NUM_CLASSES", 3)
+    monkeypatch.setenv("AB_STEPS", "1")
+    lines = _lines(bench_opt_ab.main, ["--device", "cpu", "--turns", "2"])
+    turns, (last,) = lines[:-1], lines[-1:]
+    assert [(t["turn"], t["variant"]) for t in turns] == [
+        (0, "fused"), (0, "unfused"), (1, "unfused"), (1, "fused")]
+    assert jax_keys <= set(last) and all(last[k] > 0 for k in jax_keys)
+    assert last["steps"] == 1 and last["turns"] == 2
+    assert all(line["device"].startswith("cpu") and "power_limit" in line
+               for line in lines)
+
+    # One arm: its keys only.
+    monkeypatch.setattr(bench_opt_ab, "_Arm", lambda device, fused: (
+        types.SimpleNamespace(update=lambda: None, step=types.SimpleNamespace(
+            run=lambda: None))))
+    (_, last) = _lines(bench_opt_ab.main, ["--device", "cpu", "--turns", "1",
+                                          "--variant", "unfused"])
+    assert {k for k in last if k.startswith(("opt_", "step_"))
+            and not k.endswith(("_min", "_max"))} == {"opt_unfused",
+                                                      "step_unfused"}
+
+
 @pytest.mark.parametrize("main", [
     bench_components.main, bench_backbone_parts.main, bench_eval.main,
-    profile_step.main], ids=["components", "backbone_parts", "eval",
-                             "profile_step"])
+    profile_step.main, bench_opt_ab.main],
+    ids=["components", "backbone_parts", "eval", "profile_step",
+         "opt_ab"])
 def test_tools_raise_without_a_card(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -291,6 +339,12 @@ def test_e2e_on_the_cpu(monkeypatch):
     assert line["metric"] == "cap2det_e2e_train_images_per_sec"
     assert line["value"] > 0 and line["host_pipeline_images_per_sec"] > 0
     assert line["host_workers"] >= 1 and line["min_dimension"] == 64
+    # The feed reads through the host library; the Python reader's rate
+    # is measured beside it, in turns.
+    assert line["record_reader"] == "native.read_records_native"
+    assert line["host_pipeline_python_reader_images_per_sec"] > 0
+    assert [len(v) for v in line["host_pipeline_turns"].values()] == [2, 2]
+    assert line["first_step_wait_s"] >= 0 and line["host_library_s"] >= 0
 
 
 # -- the import guard ----------------------------------------------------------

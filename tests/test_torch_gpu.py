@@ -15,10 +15,11 @@ import torch
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.eval import evaluator
-from cap2det_tpu_torch.kernels import build, pool_grad, roi_pool
+from cap2det_tpu_torch.kernels import (build, fused_optimizer, pool_grad,
+                                       roi_pool)
 from cap2det_tpu_torch.models import frcnn, registry
 from cap2det_tpu_torch.ops import roi as roi_ops
-from cap2det_tpu_torch.train import trainer
+from cap2det_tpu_torch.train import optimizers, trainer
 import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
 
 pytestmark = pytest.mark.gpu
@@ -416,13 +417,15 @@ def test_train_step_launch_counts(cuda, tmp_path, unfreeze, want_k2,
     })
     counts = (roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
               pool_grad.maxpool_grad_launches,
-              pool_grad.avgpool_grad_launches)
+              pool_grad.avgpool_grad_launches, fused_optimizer.launches)
     state, logs = step(state, batch, 0)
     torch.cuda.synchronize()
     delta = tuple(b - a for a, b in zip(counts, (
         roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
-        pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches)))
-    assert delta == (1, 3, want_k2, want_k5, 1)
+        pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches,
+        fused_optimizer.launches)))
+    # The fused optimizer updates every trainable leaf in one launch.
+    assert delta == (1, 3, want_k2, want_k5, 1, 1)
     assert torch.isfinite(logs["loss/total_loss"])
     assert state["step"] == 1
 
@@ -702,3 +705,80 @@ def test_host_library_builds_on_the_card_machine(cuda, tmp_path, monkeypatch):
                                   first)
     np.testing.assert_array_equal(native.felzenszwalb(image, 100.0, 20),
                                   native.felzenszwalb(image, 100.0, 20))
+
+
+# -- the fused optimizer -------------------------------------------------------
+
+_OPTIMIZERS = {
+    "sgd": "sgd {}",
+    "adagrad": "adagrad { initial_accumulator_value: 0.1 }",
+    "adam": "adam { beta1: 0.8 beta2: 0.99 epsilon: 0.001 }",
+    "rmsprop": "rmsprop { decay: 0.9 epsilon: 0.01 }",
+    "rmsprop_centered_momentum": ("rmsprop { decay: 0.9 epsilon: 0.01 "
+                                  "centered: true momentum: 0.5 }"),
+    "momentum": "momentum { momentum: 0.9 }",
+    "nesterov": "momentum { momentum: 0.9 use_nesterov: true }",
+}
+# Under clipping the leaf's norm is summed in another order than
+# torch.sum's, so the factor, and what follows, may differ in the last
+# bits: held within this many ulps of each leaf's largest magnitude.
+CLIP_ULPS = 8.0
+
+
+def _fused_leaves(rng):
+    """70 leaves (two launch groups): 3x3 convolution weights whose
+    gradients arrive channels-last, 1x1 weights, betas, a 2-D head and
+    one leaf of several chunks; multipliers 3 and 1."""
+    shapes = []
+    for i in range(70):
+        shapes.append([(48, 32, 3, 3), (64, 40, 1, 1), (96,), (1024, 3),
+                       (300, 200)][i % 5] if i != 7 else (352, 1024, 1, 1))
+    paths = ["leaf%02d" % i for i in range(70)]
+    mults = [3.0 if i % 4 == 0 else 1.0 for i in range(70)]
+    return paths, shapes, mults
+
+
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["no_clip", "clip"])
+@pytest.mark.parametrize("kind", list(_OPTIMIZERS))
+def test_fused_optimizer_kernel_matches_plain(cuda, kind, clip):
+    """Ten chained updates, kernel against ``fused_update_reference`` on
+    the same inputs: params and slots bit for bit (within CLIP_ULPS with
+    clipping)."""
+    rng = np.random.default_rng(31)
+    paths, shapes, mults = _fused_leaves(rng)
+    rule = optimizers.build_base_optimizer(schema.loads_pipeline(
+        "train_config { optimizer { %s } }" % _OPTIMIZERS[kind]
+    ).train_config.optimizer)
+    leaf_set = fused_optimizer.LeafSet(paths, shapes, mults)
+    assert len(leaf_set.groups) == 2
+    init = [torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32))
+            for s in shapes]
+    runs = []
+    for launch in (fused_optimizer.fused_update,
+                   fused_optimizer.fused_update_reference):
+        params = [p.to(cuda) for p in init]
+        slots = rule.init(torch.empty(leaf_set.total, device=cuda))
+        step_rng = np.random.default_rng(32)
+        before = fused_optimizer.launches
+        for count in range(10):
+            grads = []
+            for s in shapes:
+                g = torch.from_numpy(step_rng.normal(0, 1.0, s).astype(
+                    np.float32)).to(cuda)
+                if len(s) == 4 and s[2] == 3:
+                    g = g.contiguous(memory_format=torch.channels_last)
+                grads.append(g)
+            launch(rule, leaf_set, params, grads, slots,
+                   0.01 * 0.5 ** (count // 3), count, clip)
+        torch.cuda.synchronize()
+        runs.append((params, slots, fused_optimizer.launches - before))
+    (got, got_slots, launches), (want, want_slots, _) = runs
+    assert launches == 10 * 2 * (1 + (clip is not None))
+    limit = 0.0 if clip is None else CLIP_ULPS
+    for path, a, b in zip(paths, got, want):
+        assert fused_optimizer.ulp_gap(a, b) <= limit, path
+    for name in want_slots:
+        for off, n in zip(leaf_set.offsets, leaf_set.numels):
+            assert fused_optimizer.ulp_gap(
+                got_slots[name][off:off + n],
+                want_slots[name][off:off + n]) <= limit, name

@@ -192,7 +192,8 @@ def test_host_build_rules(tmp_path, monkeypatch):
         build.CSRC.parents[1]).as_posix() == "build/torch_host"
     cxx = build._cxx()
     sources = sorted(build.HOST_SRC.glob("*.cc"))
-    assert [s.name for s in sources] == ["selective_search.cc"]
+    assert [s.name for s in sources] == ["selective_search.cc",
+                                         "tfrecord_reader.cc"]
     key = build._host_key(cxx, sources)
     monkeypatch.setattr(build, "HOST_BUILD_ROOT", tmp_path)
     monkeypatch.setattr(build, "_host_lib", None)
