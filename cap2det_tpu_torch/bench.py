@@ -2,7 +2,7 @@
 the root ``bench.py``, which stays the JAX package's bench).
 
     python -m cap2det_tpu_torch.bench [--shape bench|inc2] [--batch N]
-        [--measure_steps N] [--device cuda|cpu]
+        [--measure_steps N] [--device cuda|cpu] [--second_stage_remat]
     python -m cap2det_tpu_torch.bench --e2e [--e2e_min_dim D]
     python -m cap2det_tpu_torch.bench --cpu_baseline
 
@@ -26,7 +26,9 @@ Prints ONE JSON line with the JAX bench's keys (``metric``, ``value``,
 ``tflops_per_step_incl_kernels``, ``mfu_lower_bound``, ``mfu``,
 ``vs_baseline``, ``baseline_source``), the rounds' spread and the host
 clock beside the CUDA events (``tools/benchlib.time_rounds``), peak
-memory, kernel launches per step, and the card's name and power limit.
+memory, kernel launches per step, whether the second stage was
+recomputed in the backward (``--second_stage_remat``), and the card's
+name and power limit.
 ``tflops_per_step`` is the aten count of one step (convolutions, matmuls
 and their backward); ``..._incl_kernels`` adds the kernels' function
 counts (``benchlib.step_flops``). ``mfu`` divides the step's FLOPs per
@@ -101,15 +103,23 @@ train_config {
 }
 """
 
-# Kernel launches of one step: Mixed_4e trainable runs K2 and Mixed_5a's
-# max-pool backward; the full freeze runs neither. The fused optimizer
-# updates every trainable leaf in one launch.
+# Kernel launches of one step, by (full_freeze, second_stage_remat):
+# Mixed_4e trainable runs K2 and Mixed_5a's max-pool backward; the full
+# freeze runs neither. The fused optimizer updates every trainable leaf in
+# one launch. With the second stage recomputed, each block's recompute
+# launches its pool again, but the full freeze's Mixed_5a recompute stops
+# before its pool: no gradient flows into the ROIs, so nothing of the pool
+# branch is kept for the backward.
 LAUNCHES = {
-    False: {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
-            "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1},
-    True: {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 0,
-           "maxpool_grad": 1, "avgpool_grad": 1, "fused_optimizer": 1},
+    (False, False): {"roi_crop_maxpool": 1, "pool_fwd": 3,
+                     "roi_crop_maxpool_grad": 1, "maxpool_grad": 2,
+                     "avgpool_grad": 1, "fused_optimizer": 1},
+    (True, False): {"roi_crop_maxpool": 1, "pool_fwd": 3,
+                    "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
+                    "avgpool_grad": 1, "fused_optimizer": 1},
 }
+LAUNCHES[(False, True)] = dict(LAUNCHES[(False, False)], pool_fwd=6)
+LAUNCHES[(True, True)] = dict(LAUNCHES[(True, False)], pool_fwd=5)
 
 BASELINE_CPU_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "BASELINE_CPU.json")
@@ -173,7 +183,8 @@ class BenchStep:
     on the placed batch and keeps the state and logs."""
 
     def __init__(self, shape, device, compute_dtype=torch.bfloat16,
-                 batch_size=None, keep_prob=0.5, fused=None):
+                 batch_size=None, keep_prob=0.5, fused=None,
+                 second_stage_remat=False):
         from cap2det_tpu_torch.models import registry
         from cap2det_tpu_torch.train import trainer
         import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
@@ -189,7 +200,8 @@ class BenchStep:
             self.cfg = config(label_file, self.full_freeze, keep_prob)
             self.model = registry.build(self.cfg.model, is_training=True,
                                         compute_dtype=compute_dtype,
-                                        device=self.device)
+                                        device=self.device,
+                                        second_stage_remat=second_stage_remat)
         self.state, self.tx, _, self.mask = trainer.TrainState.create(
             self.model, self.cfg.train_config, 0, fused=fused)
         self.step = trainer.make_train_step(self.model, self.tx,
@@ -216,13 +228,13 @@ def step_launches(bench_step):
     return {k: after[k] - before[k] for k in after}
 
 
-def check_launches(launches, full_freeze, device):
+def check_launches(launches, full_freeze, device, second_stage_remat=False):
     """Raises unless each kernel launched as often as the regime needs (on
     the card; on the CPU the plain versions run and nothing counts)."""
-    if torch.device(device).type == "cuda" and launches != LAUNCHES[
-            full_freeze]:
+    want = LAUNCHES[(full_freeze, second_stage_remat)]
+    if torch.device(device).type == "cuda" and launches != want:
         raise AssertionError("kernel launches per step %s, expected %s"
-                             % (launches, LAUNCHES[full_freeze]))
+                             % (launches, want))
 
 
 def load_cpu_baseline(shape_name):
@@ -252,14 +264,16 @@ def run_step_bench(args):
     rounds = ROUNDS if cuda else CPU_ROUNDS
     fields = benchlib.device_fields(device)
 
-    bench_step = BenchStep(shape, device, compute_dtype, args.batch)
+    bench_step = BenchStep(shape, device, compute_dtype, args.batch,
+                           second_stage_remat=args.second_stage_remat)
     for _ in range(WARMUP_STEPS):
         bench_step.run()
     if not math.isfinite(bench_step.loss()):
         raise AssertionError("non-finite loss after warm-up: %r"
                              % bench_step.loss())
     launches = step_launches(bench_step)
-    check_launches(launches, bench_step.full_freeze, device)
+    check_launches(launches, bench_step.full_freeze, device,
+                   args.second_stage_remat)
     flops = benchlib.step_flops(bench_step.run)
     if cuda:
         torch.cuda.synchronize()
@@ -320,6 +334,7 @@ def run_step_bench(args):
     baseline, out["baseline_source"] = load_cpu_baseline(args.shape)
     out["vs_baseline"] = images_per_sec / baseline if baseline else None
     out.update(launches=launches, peak_bytes=peak,
+               second_stage_remat=args.second_stage_remat,
                compute_dtype=str(compute_dtype).split(".")[-1],
                canvas_hw=list(shape["canvas_hw"]),
                num_proposals=shape["num_proposals"],
@@ -479,7 +494,16 @@ def parse_args(argv=None):
         help="Override the shape's batch size (losses are batch means).")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu")
-    return parser.parse_args(argv)
+    parser.add_argument(
+        "--second_stage_remat", action="store_true",
+        help="Recompute the second stage's Mixed_5 blocks in the backward "
+             "instead of keeping their intermediates (the train CLI's "
+             "option of that name); the step bench only.")
+    args = parser.parse_args(argv)
+    if args.second_stage_remat and (args.e2e or args.cpu_baseline):
+        parser.error("--second_stage_remat is an option of the step bench, "
+                     "not of --e2e or --cpu_baseline")
+    return args
 
 
 def main(argv=None):

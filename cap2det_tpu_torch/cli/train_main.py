@@ -5,7 +5,8 @@ Usage:
   python -m cap2det_tpu_torch.cli.train_main \
       --pipeline_proto configs/coco17_extend_match.pbtxt \
       --model_dir logs/coco17_extend_match \
-      [--pretrained_checkpoint backbone.pt] [--device cuda]
+      [--pretrained_checkpoint backbone.pt] [--device cuda] \
+      [--second_stage_remat]
 
 Data parallel, one process per card (``parallel/distributed.py``):
 
@@ -50,6 +51,11 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu.")
+    parser.add_argument("--second_stage_remat", action="store_true",
+                        help="Recompute the second stage's Mixed_5 blocks "
+                             "in the backward instead of keeping their "
+                             "intermediates: less memory, one more "
+                             "second-stage forward a step.")
     args = parser.parse_args(argv)
 
     # A no-op without a launcher's settings; else joins the process group
@@ -64,6 +70,7 @@ def main(argv=None):
             seed=args.seed,
             pretrained_checkpoint=args.pretrained_checkpoint,
             device=device,
+            second_stage_remat=args.second_stage_remat,
         )
     finally:
         distributed.shutdown()

@@ -37,15 +37,21 @@ class Cap2DetModel(ModelBase):
     The label extractor is the host side of the input pipeline, as in the
     JAX package: it makes labels in the feed's worker process. A text
     classifier there is built with device="cpu", loads its checkpoint in
-    that process at its first batch, and never starts CUDA."""
+    that process at its first batch, and never starts CUDA.
+
+    ``second_stage_remat`` recomputes the second stage's Mixed_5 blocks in
+    the backward instead of keeping their intermediates (less memory, one
+    more second-stage forward a step; the same values and gradients)."""
 
     non_trainable_paths = ("word_embedding",)
     non_trainable_substrings = ("/BatchNorm/moving_",)
 
     def __init__(self, options: schema.Cap2DetModel, is_training=False,
-                 compute_dtype=torch.bfloat16, device="cuda"):
+                 compute_dtype=torch.bfloat16, device="cuda",
+                 second_stage_remat=False):
         self._options = options
         self._compute_dtype = compute_dtype
+        self._second_stage_remat = bool(second_stage_remat)
         self._device = params_lib.resolve_device(device)
         extractor_kwargs = {}  # a text classifier runs on the CPU
         if (options.label_extractor is not None
@@ -165,6 +171,7 @@ class Cap2DetModel(ModelBase):
         features = frcnn.extract_features(
             prepared, images, proposals, self._options.frcnn_options,
             is_training=is_training, generator=generator,
+            second_stage_remat=self._second_stage_remat,
         )
         class_logits, proposal_scores, proba_r_given_c = wsod.midn_head(
             prepared["midn"], features, mask

@@ -60,7 +60,7 @@ def dropout(x, keep_prob, generator):
 
 def extract_features(prepared, images, proposals, options: schema.FRCNN,
                      is_training=False, generator=None,
-                     second_stage_chunk=None):
+                     second_stage_chunk=None, second_stage_remat=False):
     """Returns [B, P, 1024] float32 pooled proposal features.
 
     Args:
@@ -74,6 +74,8 @@ def extract_features(prepared, images, proposals, options: schema.FRCNN,
       second_stage_chunk: optional number of ROIs per pass through the
         second stage; None runs all B*P at once. When it would engage it
         must divide B*P, as in the JAX package.
+      second_stage_remat: recompute each Mixed_5 block in the backward
+        (``inception_v2.second_stage(remat=True)``), in every chunk.
     """
     batch, num_proposals = proposals.shape[:2]
     keep_prob = options.dropout_keep_prob
@@ -99,11 +101,13 @@ def extract_features(prepared, images, proposals, options: schema.FRCNN,
             )
         box_features = torch.cat([
             inception_v2.second_stage(prepared[SECOND_SCOPE],
-                                      rois[i:i + second_stage_chunk])
+                                      rois[i:i + second_stage_chunk],
+                                      remat=second_stage_remat)
             for i in range(0, n, second_stage_chunk)
         ])
     else:
-        box_features = inception_v2.second_stage(prepared[SECOND_SCOPE], rois)
+        box_features = inception_v2.second_stage(
+            prepared[SECOND_SCOPE], rois, remat=second_stage_remat)
     pooled = box_features.float().mean(dim=(1, 2))  # [B*P, 1024]
     if is_training and keep_prob < 1.0:
         pooled = dropout(pooled, keep_prob, generator)

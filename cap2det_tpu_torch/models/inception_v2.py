@@ -25,6 +25,10 @@ copy) for cuDNN. What the port reproduces, and how:
 - Second-stage pools go through the SAME pool kernels at every N
   (``kernels/pool_grad.pool_same``: K4 forward, K5/K6 backward); the first
   stage's large-map pools stay plain torch.
+- ``second_stage(remat=True)`` recomputes each Mixed_5 block in the
+  backward instead of keeping its intermediates, as the JAX package's
+  CAP2DET_SECOND_STAGE_REMAT=1 does; the port takes an argument, not an
+  environment variable.
 
 The TPU layout choices of the JAX package (merged 1x1 branches, lane
 padding to 128, the space-to-depth stem) are not carried over.
@@ -35,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from cap2det_tpu_torch.kernels import pool_grad
 from cap2det_tpu_torch.params import truncated_normal
@@ -327,11 +332,27 @@ def first_stage(prepared, images):
     return _to_nhwc(x)
 
 
-def second_stage(prepared, rois):
+def second_stage(prepared, rois, remat=False):
     """ROI features [N, S, S, 576] -> Mixed_5c features [N, S', S', 1024]
-    (NHWC, contiguous) in the dtype of the weights that ``prepare`` made."""
+    (NHWC, contiguous) in the dtype of the weights that ``prepare`` made.
+
+    With `remat`, while autograd records, each Mixed_5 block runs under
+    one non-reentrant ``torch.utils.checkpoint``: only the block's input
+    is kept, and the backward runs the block's forward again (its K4
+    launch too) to rebuild what its own backward reads. Values and
+    gradients are the same bits; under ``torch.no_grad`` the path is the
+    plain one."""
     p = prepared["InceptionV2"]
     x = _to_nchw(rois.contiguous())
+    checkpointed = remat and torch.is_grad_enabled()
     for name in SECOND_BLOCKS:
-        x = _block(p[name], _BLOCKS_SECOND[name], x, pool_roi)
+        if checkpointed:
+            # No block draws random numbers (the FRCNN dropout acts on the
+            # first-stage map and the pooled features), so the recompute
+            # needs no saved RNG state.
+            x = torch_checkpoint.checkpoint(
+                _block, p[name], _BLOCKS_SECOND[name], x, pool_roi,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(p[name], _BLOCKS_SECOND[name], x, pool_roi)
     return _to_nhwc(x)

@@ -31,7 +31,10 @@ class TextModel(ModelBase):
     non_trainable_paths = ("word_embedding",)
 
     def __init__(self, options: schema.TextModel, is_training=False,
-                 device="cuda"):
+                 device="cuda", second_stage_remat=False):
+        if second_stage_remat:
+            raise ValueError("second_stage_remat: the text model has no "
+                             "second stage")
         self._options = options
         self._device = params_lib.resolve_device(device)
         self.label_extractor = extractors_lib.GroundtruthExtractor(

@@ -268,6 +268,7 @@ def train(
     pretrained_checkpoint=None,
     profile_steps=None,
     device="cuda",
+    second_stage_remat=False,
 ):
     """Runs training per the pipeline config. Returns the final state.
 
@@ -289,6 +290,9 @@ def train(
       device: "cuda" (the default; raises without a card) or "cpu". In a
         process group, the rank's device (``distributed.maybe_initialize``
         returns it).
+      second_stage_remat: build the model with its second stage
+        recomputed in the backward (``Cap2DetModel(second_stage_remat=)``;
+        the text model raises), on every rank.
 
     In a process group (``torch.distributed`` initialised by the caller,
     who also destroys it), every rank runs this loop on its own card with
@@ -314,7 +318,8 @@ def train(
     chief = mesh_lib.rank(group) == 0
 
     model = registry.build(pipeline_config.model, is_training=True,
-                           device=device)
+                           device=device,
+                           second_stage_remat=second_stage_remat)
     reader = pipeline_config.train_reader
     pipe = pipeline_lib.build_input_pipeline(
         reader, seed=_pipeline_seed(reader, seed, group),

@@ -70,6 +70,18 @@ Phases (any failure ends the run with a nonzero exit code):
      per step at most bench's step_ms, its busy share and longest idle
      gaps (each with the host operations around it) and its conv
      table, and bench_eval's NMS share of predict in (0, 1);
+  9a. second_stage_remat: the bench's step (cap2det_tpu_torch.bench.
+     BenchStep) with the second stage recomputed in the backward
+     (second_stage_remat=True) against kept, at the bench shape (batch 2,
+     P=500, Mixed_4e trainable), inc2 (batch 1, P=2000, full freeze) and
+     inc2 at batch 8, under deterministic cuDNN: a second plain arm
+     first (its loss, gradients and updated params equal the plain
+     arm's, bit for bit), then remat against plain, bit for bit; each
+     arm's launches in its first step are bench.LAUNCHES's; each arm's
+     peak memory over one step, lower with remat at inc2 batch 8; the
+     step in 4 alternating turns of 8 (CUDA events); each arm's device
+     ms a step (torch.profiler over 4 steps; a trace without device
+     events fails the run);
  10. one float32 training step at 256x384, P=64 on the card and on the
      CPU from the same params and batch: loss, head gradients and updated
      head params agree; dropout's x / 0.7 and the mean over 3 eval scales
@@ -1508,6 +1520,173 @@ def phase_bench(torch, coco, coco_want, voc_want):
             bench["value"], out["bench inc2"][0]["value"], e2e["value"],
             bench["mfu"], device_ms, busy[0]["busy_share"],
             profile[0]["busy_share_untraced"], share))
+    return out
+
+
+REMAT_SHAPES = (  # (label, bench shape, batch: None for the shape's)
+    ("bench", "bench", None), ("inc2", "inc2", None),
+    ("inc2 batch 8", "inc2", 8))
+REMAT_TURNS = 4  # turns per arm, alternating
+REMAT_STEPS = 8  # steps per turn
+REMAT_PEAK_SHAPE = "inc2 batch 8"  # where remat must lower the peak
+REMAT_PROFILED_STEPS = 4
+
+
+def profiled_device_ms(torch, fn, steps):
+    """Milliseconds of card time per call of fn(): the sum of the card's
+    event times in a torch.profiler trace of `steps` calls (profile_step's
+    ``total_device_ms_per_step``). A trace without them raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise AssertionError("the trace holds no device events")
+    return us / 1e3 / steps
+
+
+def remat_arm(bench, shape, batch, remat):
+    """A bench step whose optimizer keeps the gradients it is handed until
+    ``del arm.tx.apply``."""
+    arm = bench.BenchStep(shape, "cuda", batch_size=batch,
+                          second_stage_remat=remat)
+    apply = arm.tx.apply
+
+    def capture(params, grads, state):
+        arm.grads = dict(grads)
+        return apply(params, grads, state)
+
+    arm.tx.apply = capture
+    return arm
+
+
+def differing(torch, a, b):
+    """Names of the loss, gradients and params whose bits differ."""
+    out = [] if torch.equal(a["loss"], b["loss"]) else ["loss"]
+    for kind in ("grads", "params"):
+        if a[kind].keys() != b[kind].keys():
+            out.append(kind + ": other leaves")
+            continue
+        out += ["%s %s" % (kind, k) for k in a[kind]
+                if not torch.equal(a[kind][k], b[kind][k])]
+    return out
+
+
+def phase_second_stage_remat(torch):
+    """The second stage recomputed in the backward against kept, on the
+    bench's step at three shapes (see the module's docstring, 9a)."""
+    from cap2det_tpu_torch import bench
+    from cap2det_tpu_torch.tools import benchlib
+    from cap2det_tpu_torch.train import optimizers
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    cudnn.benchmark, cudnn.deterministic = False, True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for label, shape_name, batch in REMAT_SHAPES:
+            shape = bench.SHAPES[shape_name]
+            arms = {name: remat_arm(bench, shape, batch, name == "remat")
+                    for name in ("plain", "control", "remat")}
+            seen = {}
+            for name, arm in arms.items():
+                want = bench.LAUNCHES[(shape["full_freeze"],
+                                       name == "remat")]
+                reset_launch_counts()
+                arm.run()
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                if launches != want:
+                    raise AssertionError(
+                        "second_stage_remat: %s: %s launches per step %s, "
+                        "expected %s" % (label, name, launches, want))
+                seen[name] = {"loss": arm.logs["loss/total_loss"],
+                              "grads": arm.grads, "launches": launches,
+                              "params": dict(optimizers.flatten_params(
+                                  arm.state["params"]))}
+                del arm.tx.apply, arm.grads
+            for name in ("control", "remat"):
+                diff = differing(torch, seen[name], seen["plain"])
+                if diff:
+                    raise AssertionError(
+                        "second_stage_remat: %s: the %s arm's bits differ "
+                        "from the plain arm's in %d of loss, gradients and "
+                        "params: %s" % (label, name, len(diff), diff[:8]))
+            result = {name: {"launches": seen[name]["launches"]}
+                      for name in ("plain", "remat")}
+            result["loss"] = float(seen["plain"]["loss"])
+            del arms["control"], seen
+            torch.cuda.empty_cache()
+
+            for name, arm in arms.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                arm.run()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                result[name].update(peak_gb=peak / 1e9,
+                                    step_rise_gb=(peak - before) / 1e9)
+            times = {name: [] for name in arms}
+            for turn in range(REMAT_TURNS):
+                order = ("plain", "remat") if turn % 2 == 0 else (
+                    "remat", "plain")
+                for name in order:
+                    times[name].append(benchlib.time_rounds(
+                        arms[name].run, "cuda", REMAT_STEPS, 1,
+                        warmup=0)["ms"])
+            for name, arm in arms.items():
+                if not np.isfinite(arm.loss()):
+                    raise AssertionError("second_stage_remat: %s: %s loss "
+                                         "%r" % (label, name, arm.loss()))
+                step_ms = float(np.median(times[name]))
+                busy_ms = profiled_device_ms(torch, arm.run,
+                                             REMAT_PROFILED_STEPS)
+                result[name].update(step_ms=step_ms,
+                                    step_ms_min=min(times[name]),
+                                    step_ms_max=max(times[name]),
+                                    turns_ms=times[name],
+                                    device_ms=busy_ms,
+                                    busy_share=busy_ms / step_ms)
+            result["batch"] = arms["plain"].batch_size
+            result["num_proposals"] = shape["num_proposals"]
+            result["full_freeze"] = shape["full_freeze"]
+            out[label] = result
+            log("second_stage_remat: %s: bit for bit (control and remat); "
+                "peak %.4f GB plain, %.4f GB remat; step %.4f ms plain, "
+                "%.4f remat (medians of %d turns of %d); device %.4f ms "
+                "plain, %.4f remat" % (
+                    label, result["plain"]["peak_gb"],
+                    result["remat"]["peak_gb"], result["plain"]["step_ms"],
+                    result["remat"]["step_ms"], REMAT_TURNS, REMAT_STEPS,
+                    result["plain"]["device_ms"],
+                    result["remat"]["device_ms"]))
+            del arms
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+    peaks = out[REMAT_PEAK_SHAPE]
+    if not peaks["remat"]["peak_gb"] < peaks["plain"]["peak_gb"]:
+        raise AssertionError("second_stage_remat: at %s the peak with remat "
+                             "%.4f GB is not below the plain %.4f GB" % (
+                                 REMAT_PEAK_SHAPE, peaks["remat"]["peak_gb"],
+                                 peaks["plain"]["peak_gb"]))
+    log("second_stage_remat " + json.dumps({
+        "shapes": out, "turns": REMAT_TURNS, "steps_per_turn": REMAT_STEPS,
+        "clock": "cuda events", "card": card_name_and_limit(),
+        "seconds": time.perf_counter() - t0}))
     return out
 
 
@@ -3863,6 +4042,8 @@ def main(argv):
         want=FROZEN_PER_STEP)
     torch.cuda.empty_cache()
     phase_bench(torch, coco, PER_STEP, FROZEN_PER_STEP)
+    torch.cuda.empty_cache()
+    phase_second_stage_remat(torch)
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
     torch.cuda.empty_cache()

@@ -265,7 +265,7 @@ def test_step_count_lies_within_xla_count(steps):
     assert steps["port_flops_in_bounds"]["kernels"] == steps[
         "port_flops"]["kernels"]
     assert set(steps["port_flops"]["kernels"]) == set(
-        bench.LAUNCHES[False])
+        bench.LAUNCHES[(False, False)])
 
 
 # -- the kernels' FLOP formulas against instrumented Python versions --------
@@ -455,6 +455,55 @@ def test_main_prints_one_line_with_the_jax_keys(monkeypatch, tmp_path):
     assert line["step_ms"] > 0 and line["tflops_per_step"] > 0
     assert line["mfu"] is None and line["device"].startswith("cpu")
     assert line["vs_baseline"] is None
+
+
+def test_main_with_second_stage_remat(monkeypatch, tmp_path):
+    """``--second_stage_remat`` builds the bench's model with the second
+    stage recomputed and says so in the line."""
+    monkeypatch.setitem(bench.SHAPES, "tiny", dict(TINY))
+    monkeypatch.setattr(bench, "WARMUP_STEPS", 1)
+    monkeypatch.setattr(bench, "BASELINE_CPU_FILE",
+                        str(tmp_path / "missing.json"))
+    built = []
+    real = bench.BenchStep.__init__
+
+    def spy(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        built.append(self.model._second_stage_remat)
+
+    monkeypatch.setattr(bench.BenchStep, "__init__", spy)
+    (line,) = _run_main(["--device", "cpu", "--shape", "tiny",
+                         "--measure_steps", "1", "--second_stage_remat"])
+    assert built == [True] and line["second_stage_remat"] is True
+    assert line["value"] > 0 and line["launches"]
+
+
+@pytest.mark.parametrize("mode", ["--e2e", "--cpu_baseline"])
+def test_second_stage_remat_is_refused_outside_the_step_bench(mode, capsys):
+    """``--second_stage_remat`` is an option of the step bench: with
+    ``--e2e`` or ``--cpu_baseline`` the command line is refused."""
+    with pytest.raises(SystemExit) as exc:
+        bench.parse_args([mode, "--second_stage_remat"])
+    assert exc.value.code == 2
+    assert "option of the step bench" in capsys.readouterr().err
+    assert not bench.parse_args([mode]).second_stage_remat
+
+
+def test_remat_bench_steps_equal_plain_with_dropout():
+    """Two tiny bench steps with dropout on (keep 0.5, drawn outside the
+    checkpointed blocks): the second stage recomputed gives the plain
+    step's losses and params bit for bit."""
+    runs = []
+    for remat in (False, True):
+        step = bench.BenchStep(TINY, "cpu", torch.float32,
+                               second_stage_remat=remat)
+        losses = [step.run()["loss/total_loss"] for _ in range(2)]
+        runs.append((losses, optimizers.flatten_params(
+            step.state["params"])))
+    (plain_losses, plain), (losses, params) = runs
+    assert all(map(torch.equal, losses, plain_losses))
+    assert [p for p, _ in params] == [p for p, _ in plain]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(params, plain))
 
 
 def test_main_raises_without_a_card(monkeypatch):

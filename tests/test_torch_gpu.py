@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cap2det_tpu_torch import bench
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.eval import evaluator
@@ -428,6 +429,37 @@ def test_train_step_launch_counts(cuda, tmp_path, unfreeze, want_k2,
     assert delta == (1, 3, want_k2, want_k5, 1, 1)
     assert torch.isfinite(logs["loss/total_loss"])
     assert state["step"] == 1
+
+
+@pytest.mark.parametrize("full_freeze", [False, True],
+                         ids=["mixed4e_unfrozen", "full_freeze"])
+def test_second_stage_remat_on_the_card(cuda, monkeypatch, full_freeze):
+    """Two bench steps at a small shape (bf16, dropout on), the second
+    stage recomputed in the backward against kept: the same losses and
+    params bit for bit under deterministic algorithms, and each step's
+    launches are ``bench.LAUNCHES``'s for its regime."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    shape = dict(batch=2, canvas_hw=(64, 96), num_proposals=16,
+                 num_classes=3, full_freeze=full_freeze)
+    runs = []
+    try:
+        for remat in (False, True):
+            step = bench.BenchStep(shape, cuda, second_stage_remat=remat)
+            launches = bench.step_launches(step)
+            bench.check_launches(launches, full_freeze, cuda, remat)
+            losses = [step.logs["loss/total_loss"],
+                      step.run()["loss/total_loss"]]
+            runs.append((losses, optimizers.flatten_params(
+                step.state["params"])))
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    (plain_losses, plain), (losses, params) = runs
+    assert all(map(torch.equal, losses, plain_losses))
+    assert [p for p, _ in params] == [p for p, _ in plain]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(params, plain))
 
 
 def test_dropout_divides_as_the_cpu(cuda):

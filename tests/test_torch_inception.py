@@ -1,6 +1,8 @@
 """The port's InceptionV2 stages against the JAX package at float32: the
 first stage on a 64x96 canvas (the JAX side fed both the raw canvas and
-its space-to-depth packing), and the second stage on ROI features.
+its space-to-depth packing), and the second stage on ROI features, also
+recomputed in the backward (``remat=True`` against JAX's
+CAP2DET_SECOND_STAGE_REMAT=1, value and gradients).
 
 Weights are made with numpy from a seed, with non-trivial frozen BN
 statistics so the BN fold is exercised, and carried to the port by
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from cap2det_tpu.models import inception_v2 as jax_inception
+from cap2det_tpu_torch import bench
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.kernels import pool_grad
 from cap2det_tpu_torch.models import inception_v2
@@ -104,6 +107,131 @@ def test_pool_kernel_serves_exactly_the_second_stage_pools(trees,
     inception_v2.second_stage(_prepared(second), torch.zeros(2, 7, 7, 576))
     assert calls == [((7, 7), "pool_max", 3, 2), ((4, 4), "pool_avg", 3, 1),
                      ((4, 4), "pool_max", 3, 1)]
+
+
+def _live_params(tree):
+    """The port's params from the numpy `tree`, every leaf requiring
+    gradients, and its leaves in ``jax.tree`` order."""
+    params = params_lib.from_jax_numpy(tree, "cpu")
+    leaves = jax.tree.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    return params, leaves
+
+
+def _second_stage_grads(tree, rois, g, remat, dtype=torch.float32):
+    """The port's second stage on `rois` from the numpy `tree`: its output,
+    the gradient tree of sum(output * g) (the params' structure) and the
+    ROIs' gradient."""
+    params, leaves = _live_params(tree)
+    x = torch.from_numpy(rois).to(dtype).requires_grad_(True)
+    out = inception_v2.second_stage(inception_v2.prepare(params, dtype), x,
+                                    remat=remat)
+    *grads, dx = torch.autograd.grad(
+        (out.float() * torch.from_numpy(g)).sum(), [*leaves, x])
+    return (out.detach(),
+            jax.tree.unflatten(jax.tree.structure(params), grads), dx)
+
+
+def _no_ties_rois(seed, n):
+    """ROI features with no tied maxima in Mixed_5a's pool windows."""
+    rng = np.random.default_rng(seed)
+    return np.abs(rng.standard_normal((n, 7, 7, 576))).astype(np.float32)
+
+
+def _upstream(seed, n):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 4, 4, 1024)).astype(np.float32)
+
+
+def test_second_stage_remat_matches_jax_remat(trees, monkeypatch):
+    """``second_stage(remat=True)`` against JAX's second stage traced with
+    CAP2DET_SECOND_STAGE_REMAT=1 (a jax.checkpoint per Mixed_5 block):
+    the output and the gradients of sum(out * g) with respect to the ROIs
+    and every second-stage leaf. The ROIs have no ties; Mixed_5c's pool
+    sees tied post-ReLU zeros, whose gradient the ReLU stops on both
+    sides."""
+    _, second = trees
+    rois, g = _no_ties_rois(6, 3), _upstream(7, 3)
+    monkeypatch.setenv("CAP2DET_SECOND_STAGE_REMAT", "1")
+
+    def loss(p, x):
+        out = jax_inception.second_stage(p, x, compute_dtype=jnp.float32)
+        return jnp.sum(out * g), out
+
+    fn = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)
+    # The variable is read at trace time: this trace holds the remat.
+    assert "remat" in str(jax.make_jaxpr(fn)(_jax(second), rois))
+    (_, want), (want_tree, want_rois) = jax.jit(fn)(_jax(second), rois)
+
+    got, grads, dx = _second_stage_grads(second, rois, g, remat=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_rois), rtol=RTOL,
+                               atol=ATOL)
+    got_leaves = jax.tree_util.tree_flatten_with_path(
+        params_lib.to_jax_numpy(grads))[0]
+    want_leaves = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, value), (_, want_value) in zip(got_leaves, want_leaves):
+        np.testing.assert_allclose(value, np.asarray(want_value), rtol=RTOL,
+                                   atol=ATOL, err_msg=str(path))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_second_stage_remat_changes_no_bit(trees, dtype):
+    """The port recomputing the Mixed_5 blocks in the backward gives the
+    same bits as keeping their intermediates: the output and every
+    gradient (the ROIs' included)."""
+    _, second = trees
+    rois, g = _no_ties_rois(8, 3), _upstream(9, 3)
+    plain, plain_grads, plain_dx = _second_stage_grads(second, rois, g,
+                                                       False, dtype)
+    remat, remat_grads, remat_dx = _second_stage_grads(second, rois, g,
+                                                       True, dtype)
+    assert plain.dtype == dtype and torch.equal(remat, plain)
+    assert torch.equal(remat_dx, plain_dx)
+    plain_leaves = jax.tree.leaves(plain_grads)
+    assert len(plain_leaves) == len(jax.tree.leaves(second)) == 76  # 19 convs
+    for a, b in zip(jax.tree.leaves(remat_grads), plain_leaves):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("full_freeze", [False, True],
+                         ids=["mixed4e_trainable", "full_freeze"])
+def test_remat_reruns_the_pool_kernel_as_the_bench_counts(
+        trees, monkeypatch, full_freeze):
+    """``pool_grad.pool_fwd`` calls of one second stage: 3 under no_grad
+    with or without remat and 3 through a backward without it; with it,
+    each block's recompute runs its pool again, except Mixed_5a's when no
+    gradient flows into the ROIs (the full freeze). The counts are
+    ``bench.LAUNCHES``'s."""
+    _, second = trees
+    calls = []
+    real = pool_grad.pool_fwd
+
+    def counting(x, kind, kernel, stride):
+        calls.append(kind)
+        return real(x, kind, kernel, stride)
+
+    monkeypatch.setattr(pool_grad, "pool_fwd", counting)
+    params, _ = _live_params(second)
+    rois = torch.from_numpy(_no_ties_rois(10, 2))
+    for remat in (False, True):
+        calls.clear()
+        with torch.no_grad():
+            inception_v2.second_stage(
+                inception_v2.prepare(params, torch.float32), rois,
+                remat=remat)
+        assert len(calls) == 3
+        calls.clear()
+        x = rois.clone().requires_grad_(not full_freeze)
+        inception_v2.second_stage(
+            inception_v2.prepare(params, torch.float32), x,
+            remat=remat).sum().backward()
+        assert len(calls) == bench.LAUNCHES[(full_freeze, remat)][
+            "pool_fwd"] == (3 if not remat else 5 if full_freeze else 6)
 
 
 def test_prepare_folds_bn_once_into_compute_dtype(trees):

@@ -481,6 +481,20 @@ def test_shipped_config_trains_and_evaluates_through_the_clis(shipped,
     assert row["num_examples"] == 5 and "metrics/recall_at_1" in row
 
 
+def test_text_model_refuses_second_stage_remat(setup, tmp_path):
+    """The text model has no second stage: asking it, or train_main with
+    it, for remat raises rather than doing nothing."""
+    proto = tmp_path / "text.pbtxt"
+    proto.write_text(setup["text"]())
+    cfg = schema.loads_pipeline(setup["text"]())
+    with pytest.raises(ValueError, match="no second stage"):
+        registry.build(cfg.model, device="cpu", second_stage_remat=True)
+    with pytest.raises(ValueError, match="no second stage"):
+        train_main.main(["--pipeline_proto", str(proto), "--model_dir",
+                         str(tmp_path / "model"), "--device", "cpu",
+                         "--second_stage_remat"])
+
+
 def test_text_model_needs_a_card_unless_asked_for_the_cpu(setup):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -6,6 +6,9 @@ and to the port through ``params.from_jax_numpy``), the tiny model of
 classes, 2 OICR iterations), L2 1e-6 on the heads, dropout off
 (``dropout_keep_prob: 1.0``). JAX runs on the CPU through its XLA paths;
 the port's CPU path runs the plain versions of K1, K2, K4, K5 and K6.
+With the second stage recomputed in the backward (the port's
+``second_stage_remat=True``, JAX's CAP2DET_SECOND_STAGE_REMAT=1), the
+steps agree with JAX's as well, and the port's bits do not move.
 
 The reference's CPU gradients split tied maxima where the port routes
 first-tie, but every tie that reaches a pool here is a tie of post-ReLU
@@ -13,6 +16,8 @@ zeros, whose gradient the ReLU stops on both sides: the parameter
 gradients agree. So this file compares losses and parameter gradients,
 never a pool's dx.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -98,10 +103,11 @@ def label_file(tmp_path_factory):
 _MODELS = {}
 
 
-def _models(label_file, proba_r_given_c=True, train=_MIXED_4E):
+def _models(label_file, proba_r_given_c=True, train=_MIXED_4E, remat=False):
     """(jax model, port model, jax train_config, port train_config, numpy
-    tree), cached per configuration for the module."""
-    key = (label_file, proba_r_given_c, train)
+    tree), cached per configuration for the module; `remat` builds the
+    port model with ``second_stage_remat``."""
+    key = (label_file, proba_r_given_c, train, remat)
     if key not in _MODELS:
         text = (_MODEL % (str(proba_r_given_c).lower(), label_file)
                 + _train_config(train))
@@ -111,7 +117,8 @@ def _models(label_file, proba_r_given_c=True, train=_MIXED_4E):
                                        compute_dtype=jnp.float32,
                                        use_pallas=False)
         model = registry.build(cfg.model, is_training=True,
-                               compute_dtype=torch.float32, device="cpu")
+                               compute_dtype=torch.float32, device="cpu",
+                               second_stage_remat=remat)
         _MODELS[key] = (jax_model, model, jax_cfg.train_config,
                         cfg.train_config, model.init_jax_numpy(0))
     return _MODELS[key]
@@ -295,13 +302,10 @@ def test_optimizer_matches_optax(kind):
             optimizers.flatten_params(tree))[key])
 
 
-def test_train_steps_match_jax(label_file):
-    """Four make_train_step steps from the same params on the same batch:
-    the loss at every step and the final trainable params agree with
-    JAX's; frozen leaves stay bitwise unchanged."""
-    jax_model, model, jax_tc, tc, tree = _models(label_file)
-    host = _host_batch()
-
+def _jax_train_steps(jax_model, jax_tc, tree, host, steps, jaxpr=False):
+    """`steps` steps of JAX's make_train_step, traced afresh, from `tree`
+    on `host`: (losses, final params by path, the step's jaxpr text if
+    `jaxpr`, else None)."""
     jax_params = jax.tree.map(jnp.asarray, tree)
     tx, jax_mask, _ = jax_optimizers.build_optimizer(
         jax_tc, jax_params,
@@ -309,37 +313,40 @@ def test_train_steps_match_jax(label_file):
         non_trainable_substrings=jax_model.non_trainable_substrings)
     jax_state = {"params": jax_params, "opt_state": tx.init(jax_params),
                  "step": jnp.zeros((), jnp.int32)}
-    jax_step = jax.jit(jax_trainer.make_train_step(jax_model, tx, jax_tc,
-                                                   jax_mask))
-    want_losses = []
-    for _ in range(4):
-        jax_state, logs = jax_step(jax_state, _jax_batch(host),
-                                   jax.random.PRNGKey(0))
-        want_losses.append(float(logs["loss/total_loss"]))
+    step_fn = jax_trainer.make_train_step(jax_model, tx, jax_tc, jax_mask)
+    args = (_jax_batch(host), jax.random.PRNGKey(0))
+    text = str(jax.make_jaxpr(step_fn)(jax_state, *args)) if jaxpr else None
+    jax_step = jax.jit(step_fn)
+    losses = []
+    for _ in range(steps):
+        jax_state, logs = jax_step(jax_state, *args)
+        losses.append(float(logs["loss/total_loss"]))
+    params = dict(zip(jax_optimizers.param_path_strings(jax_state["params"]),
+                      jax.tree_util.tree_leaves(jax_state["params"])))
+    return losses, params, text
 
+
+def _port_train_steps(model, tc, tree, host, steps):
+    """`steps` port make_train_step steps from `tree` on `host`: (each
+    step's logs, the final state, the trainable mask)."""
     params = params_lib.from_jax_numpy(tree, "cpu")
     opt, mask, _ = optimizers.build_optimizer(
         tc, params, model.non_trainable_paths, model.non_trainable_substrings)
     state = {"params": params, "opt_state": opt.init(params), "step": 0}
     step = trainer.make_train_step(model, opt, tc, mask)
     batch = model.device_batch(host)
-    got_losses = []
-    for _ in range(4):
-        state, logs = step(state, batch, 0)
-        assert set(logs) == {"loss/total_loss",
-                             "loss/midn_cross_entropy_loss",
-                             "loss/oicr_cross_entropy_loss_at_1",
-                             "loss/oicr_cross_entropy_loss_at_2",
-                             "loss/regularization_loss"}
-        got_losses.append(float(logs["loss/total_loss"]))
-    assert state["step"] == 4
-    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
-    assert got_losses[-1] < got_losses[0]
+    logs = []
+    for _ in range(steps):
+        state, step_logs = step(state, batch, 0)
+        logs.append(step_logs)
+    return logs, state, mask
 
+
+def _assert_params_match_jax(state, mask, want, tree):
+    """The trainable params agree with JAX's `want` and most of them
+    moved; frozen leaves stay bitwise unchanged."""
     got = dict(optimizers.flatten_params(
         params_lib.to_jax_numpy(state["params"])))
-    want = dict(zip(jax_optimizers.param_path_strings(jax_state["params"]),
-                    jax.tree_util.tree_leaves(jax_state["params"])))
     flat_mask = dict(optimizers.flatten_params(mask))
     initial = dict(optimizers.flatten_params(tree))
     changed = 0
@@ -354,6 +361,82 @@ def test_train_steps_match_jax(label_file):
         else:
             np.testing.assert_array_equal(value, initial[key], err_msg=key)
     assert changed > 0.9 * sum(flat_mask.values())
+
+
+def test_train_steps_match_jax(label_file):
+    """Four make_train_step steps from the same params on the same batch:
+    the loss at every step and the final trainable params agree with
+    JAX's; frozen leaves stay bitwise unchanged."""
+    jax_model, model, jax_tc, tc, tree = _models(label_file)
+    host = _host_batch()
+    want_losses, want, _ = _jax_train_steps(jax_model, jax_tc, tree, host, 4)
+    logs, state, mask = _port_train_steps(model, tc, tree, host, 4)
+    for step_logs in logs:
+        assert set(step_logs) == {"loss/total_loss",
+                                  "loss/midn_cross_entropy_loss",
+                                  "loss/oicr_cross_entropy_loss_at_1",
+                                  "loss/oicr_cross_entropy_loss_at_2",
+                                  "loss/regularization_loss"}
+    got_losses = [float(step_logs["loss/total_loss"]) for step_logs in logs]
+    assert state["step"] == 4
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
+    assert got_losses[-1] < got_losses[0]
+    _assert_params_match_jax(state, mask, want, tree)
+
+
+@pytest.mark.parametrize("train", list(TRAIN), ids=list(TRAIN))
+def test_remat_train_steps_match_jax_remat(label_file, train, monkeypatch):
+    """Two steps of a port model built with ``second_stage_remat=True``
+    against JAX's step traced under CAP2DET_SECOND_STAGE_REMAT=1, at
+    test_train_steps_match_jax's tolerances, for both freezes."""
+    jax_model, model, jax_tc, tc, tree = _models(
+        label_file, train=TRAIN[train], remat=True)
+    assert model._second_stage_remat
+    host = _host_batch()
+    monkeypatch.setenv("CAP2DET_SECOND_STAGE_REMAT", "1")
+    want_losses, want, jaxpr = _jax_train_steps(jax_model, jax_tc, tree,
+                                                host, 2, jaxpr=True)
+    assert "remat" in jaxpr  # the variable is read at trace time
+    logs, state, mask = _port_train_steps(model, tc, tree, host, 2)
+    np.testing.assert_allclose(
+        [float(step_logs["loss/total_loss"]) for step_logs in logs],
+        want_losses, rtol=1e-4)
+    _assert_params_match_jax(state, mask, want, tree)
+
+
+@pytest.mark.parametrize("chunk", [None, 4], ids=["whole", "chunk4"])
+@pytest.mark.parametrize("train", list(TRAIN), ids=list(TRAIN))
+def test_remat_changes_no_bit(label_file, train, chunk, monkeypatch):
+    """The port with ``second_stage_remat`` against the port without it:
+    the trainable gradients, two steps' losses and the updated params
+    equal bit for bit, with the second stage whole and in chunks of 4
+    ROIs (``extract_features(second_stage_chunk=4)``, 4 chunks)."""
+    if chunk:
+        monkeypatch.setattr(frcnn, "extract_features", functools.partial(
+            frcnn.extract_features, second_stage_chunk=chunk))
+    host = _host_batch()
+    runs = []
+    for remat in (False, True):
+        _, model, _, tc, tree = _models(label_file, train=TRAIN[train],
+                                        remat=remat)
+        params = params_lib.from_jax_numpy(tree, "cpu")
+        _, mask, _ = optimizers.build_optimizer(
+            tc, params, model.non_trainable_paths,
+            model.non_trainable_substrings)
+        trainer.set_trainable(params, mask)
+        grads = _port_grads(model, params, model.device_batch(host))
+        logs, state, _ = _port_train_steps(model, tc, tree, host, 2)
+        runs.append((grads, logs, dict(optimizers.flatten_params(
+            state["params"]))))
+    (plain_grads, plain_logs, plain), (grads, logs, params) = runs
+    assert grads.keys() == plain_grads.keys() and len(grads) > 40
+    for key, g in grads.items():
+        np.testing.assert_array_equal(g, plain_grads[key], err_msg=key)
+    for step_logs, plain_step_logs in zip(logs, plain_logs):
+        for key, value in step_logs.items():
+            assert torch.equal(value, plain_step_logs[key]), key
+    for key, value in params.items():
+        assert torch.equal(value, plain[key]), key
 
 
 def test_train_state_create_and_ema(label_file):

@@ -246,6 +246,55 @@ def test_train_cli_runs_a_step_on_the_cpu(config_text, tmp_path):
         str(proto), model_dir).model_dir == model_dir
 
 
+class _Built(Exception):
+    pass
+
+
+def test_second_stage_remat_reaches_the_model_through_scripts_train(
+        config_text, tmp_path, monkeypatch):
+    """``python -m cap2det_tpu_torch.scripts.train <config> <dir>
+    --second_stage_remat`` hands the option to train_main (not to the eval
+    daemon), which builds the model with its second stage recomputed (the
+    run stops there: the steps are tests/test_torch_train.py's)."""
+    from cap2det_tpu_torch.scripts import train as train_script
+
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "configs" / "tiny.pbtxt").write_text(config_text(1))
+    monkeypatch.chdir(tmp_path)
+    started = []
+
+    class Started:
+        pid = -1
+
+        def wait(self):
+            return 0
+
+    def start(module, *args, stdout=None):
+        started.append((module, list(args)))
+        return Started()
+
+    monkeypatch.setattr(train_script, "start", start)
+    monkeypatch.setattr(train_script, "stop", lambda proc: None)
+    assert train_script.main(["tiny", "model", "--device", "cpu",
+                              "--second_stage_remat"]) == 0
+    (_, daemon_args), (module, args) = started
+    assert module == "cap2det_tpu_torch.cli.train_main"
+    assert "--second_stage_remat" in args
+    assert "--second_stage_remat" not in daemon_args
+
+    built = []
+    real = registry.build
+
+    def build(cfg, **kwargs):
+        built.append(real(cfg, **kwargs))
+        raise _Built
+
+    monkeypatch.setattr(registry, "build", build)
+    with pytest.raises(_Built):
+        train_main.main(args)
+    assert [model._second_stage_remat for model in built] == [True]
+
+
 def test_train_needs_a_card_unless_asked_for_the_cpu(config_text):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
