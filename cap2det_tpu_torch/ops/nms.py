@@ -10,15 +10,17 @@ suppression, per-class cap, global top-``max_total_size`` merge, and
 - the global top-k breaks ties by the lower flat (box, class) index, as
   ``lax.top_k`` does, through a stable sort.
 
-The greedy pass runs over all P ranks with every class at once. Each rank
-is a few small tensor ops, so on the card one pass is thousands of small
-launches per image; that cost is recorded in PERF.md.
+The greedy pass is ``kernels/nms.nms_mask``: on the card one launch of
+``csrc/nms.cu`` per call for every image and class, as JAX runs it as one
+``lax.fori_loop`` inside its compiled postprocess; on the CPU
+``_per_image_nms`` below, the kernel's plain version and oracle.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cap2det_tpu_torch.kernels import nms as nms_kernel
 from cap2det_tpu_torch.ops import boxes as box_ops
 
 
@@ -63,16 +65,15 @@ def batch_multiclass_nms(
       detection_scores: [B, max_total_size].
       detection_classes: [B, max_total_size] float, **1-based** class ids.
     """
+    selected = nms_kernel.nms_mask(boxes, scores, score_thresh, iou_thresh,
+                                   max_size_per_class)  # [B, P, C]
+    return merge_detections(boxes, scores, selected, max_total_size)
+
+
+def merge_detections(boxes, scores, selected, max_total_size):
+    """The global top-``max_total_size`` of the selected (box, class)
+    pairs of each image, as ``batch_multiclass_nms`` returns them."""
     num_b, num_p, num_c = scores.shape
-    selected = torch.stack(
-        [
-            _per_image_nms(
-                boxes[b], scores[b], iou_thresh, score_thresh,
-                max_size_per_class,
-            )
-            for b in range(num_b)
-        ]
-    )  # [B, P, C]
     neg_inf = torch.tensor(-float("inf"), dtype=scores.dtype,
                            device=scores.device)
     flat_scores = torch.where(selected, scores, neg_inf).reshape(num_b, -1)

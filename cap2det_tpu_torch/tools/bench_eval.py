@@ -157,7 +157,8 @@ def main(argv=None):
         launches = {k: after[k] - before[k] for k in after}
         want = dict.fromkeys(launches, 0)
         want.update(roi_crop_maxpool=n * len(min_dims),
-                    pool_fwd=3 * n * len(min_dims))
+                    pool_fwd=3 * n * len(min_dims),
+                    nms=n * (1 + model.options.oicr_iterations))
         if cuda and launches != want:
             raise AssertionError("bench_eval: launches %s, expected %s"
                                  % (launches, want))

@@ -20,10 +20,22 @@ Phases (any failure ends the run with a nonzero exit code):
      each) through MultiScalePredictor.predict at the full width of the
      configs/voc07_inc2.pbtxt model (4 scales, 20 classes, 3 OICR
      iterations) with seeded random weights, check the launch counters
-     and the detections, hold the card's canvases to the CPU's bit for
-     bit, time 12 images (median and spread) and one image by layer, and
-     hold one scale's
+     (4 NMS launches an image, one per iteration) and the detections,
+     hold the card's canvases to the CPU's bit for bit, time 12 images
+     (median and spread) and one image by layer, and hold one scale's
      float32 scores on the card against the same scale run on the CPU;
+ 4a. nms: hold the NMS kernel (csrc/nms.cu, one launch per
+     batch_multiclass_nms call for every image and class) against its
+     plain version (ops/nms._per_image_nms) on the card, bit for bit on
+     the mask and on all four outputs: voc07's [1, 2000, 20] with 1500
+     valid proposals, coco17's eval [1, 500, 80] and B=2, under both
+     shipped threshold pairs (MIDN iou 0.4, OICR 0.3), a binding cap, no
+     candidate, tied scores, and the serve phase's real scores (every
+     iteration of its three images); each case's walk (ranks walked,
+     mean and largest over classes; barrier steps); the kernel alone,
+     through its wrapper and the plain version timed by CUDA events
+     beside the bound, and one image's postprocess with the kernel and
+     with the plain version, each with its time and the memory it needs;
   5. hold the ROI backward kernel (K2) against its fixed-point oracle (bit
      for bit) and its float32 plain version (within GRAD_TOL) at the coco17
      training shape (features [2, 64, 96, 576], P=500), in bfloat16 and
@@ -98,7 +110,8 @@ Phases (any failure ends the run with a nonzero exit code):
      iterations, bf16) over 8 PNG records and two checkpoints of seeded
      TrainStates: one eval_metrics.jsonl row per checkpoint, oldest first,
      the CSV and HTML reports, promotion of the better final-iteration
-     mAP, launches K1 64 and K4 192 (K1 staged) and no backward kernel,
+     mAP, launches K1 64, K4 192 and NMS 64 (K1 staged) and no backward
+     kernel,
      the second checkpoint's detections not the first's; seconds per
      checkpoint and per image, the NMS share, peak memory; one image's
      postprocess on the CPU equals the card's bit for bit; then
@@ -187,7 +200,10 @@ share from a trace of train_loop's steps.
 
 The kernels line's fused_optimizer row gives the kernel's time replayed
 from a CUDA graph as "ms" (launched from the host, the wrapper's Python
-checks of 62 leaves take longer than the kernel; both are printed).
+checks of 62 leaves take longer than the kernel; both are printed). Its
+nms row gives one launch at the serve shape, the mean of an image's four
+(the order made beforehand), and the serve phase's launches; a training
+step launches no NMS, which the training checks require.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -257,7 +273,7 @@ VOC_POOL_SHAPES = [(name + " N=2000", kind, k, s, (2000,) + shape[1:])
 # index_add_ there.
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 1e-4)}
 KERNELS = ("roi_crop_maxpool", "pool_fwd", "roi_crop_maxpool_grad",
-           "maxpool_grad", "avgpool_grad", "fused_optimizer")
+           "maxpool_grad", "avgpool_grad", "fused_optimizer", "nms")
 # train() steps of the train_loop phase: enough for its seeded stream to
 # reach all eight coco17 canvas buckets.
 TRAIN_LOOP_STEPS = 40
@@ -292,9 +308,10 @@ POOL_GRAD_PATHS = ("maxpool_grad_tiled_launches",
 
 
 def reset_launch_counts():
-    from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
+    from cap2det_tpu_torch.kernels import (fused_optimizer, nms, pool_grad,
+                                           roi_pool)
 
-    fused_optimizer.launches = 0
+    fused_optimizer.launches = nms.launches = 0
     roi_pool.launches = roi_pool.grad_launches = 0
     roi_pool.staged_launches = roi_pool.generic_launches = 0
     roi_pool.grad_staged_launches = roi_pool.grad_generic_launches = 0
@@ -692,7 +709,8 @@ def phase_serve(torch, profile=False):
     log("serve: launches %s" % json.dumps(launches))
     want = dict.fromkeys(KERNELS, 0)
     want.update(roi_crop_maxpool=num_scales * len(examples),
-                pool_fwd=3 * num_scales * len(examples))
+                pool_fwd=3 * num_scales * len(examples),
+                nms=(1 + opts.oicr_iterations) * len(examples))
     if launches != want:
         raise AssertionError("launch counts %s, expected %s" % (launches, want))
     if roi_pool.staged_launches != launches["roi_crop_maxpool"]:
@@ -773,7 +791,225 @@ def phase_serve(torch, profile=False):
         errs[k] = float((got - want).abs().max() / want.abs().max())
     log("serve: card vs CPU float32 max|err|/max|ref| %s (rtol %g, atol %g)"
         % (json.dumps(errs), *SCORE_TOL))
-    return launches
+    return launches, model, outs
+
+
+NMS_OUTPUTS = ("num_detections", "detection_boxes", "detection_scores",
+               "detection_classes")
+NMS_TIMED = 50  # kernel launches per timing
+NMS_PLAIN_TIMED = 2  # plain passes per timing (a Python loop over P ranks)
+NMS_POST_TIMED = 10  # postprocess calls per timing with the kernel
+
+
+def nms_inputs(torch, rng, valid, num_p, num_c, tied=False, zero=False):
+    """Seeded boxes [B, P, 4] (make_boxes' kinds, zero padding after each
+    image's `valid` proposals) and scores [B, P, C] on the card: per class
+    a permutation spread log-uniformly over [1e-7, 1] (no ties; some under
+    the shipped score_thresh of 1e-5), or four levels (`tied`), or all 0
+    (`zero`: no candidate); the padded rows' scores 0, as postprocess
+    masks them."""
+    boxes = np.stack([np.clip(make_boxes(rng, num_p, num_p - n), 0.0, 1.0)
+                      for n in valid])
+    scores = np.zeros((len(valid), num_p, num_c), np.float32)
+    for b, n in enumerate(valid):
+        if tied:
+            scores[b, :n] = np.ceil(rng.random((n, num_c)) * 4) / 4
+        elif not zero:
+            rank = np.argsort(rng.random((n, num_c)), axis=0)
+            scores[b, :n] = 10.0 ** (-7.0 + 7.0 * (rank + 1) / (n + 1))
+    return torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+
+
+def check_nms_case(torch, label, boxes, scores, opts):
+    """The kernel against _per_image_nms on the card, bit for bit on the
+    mask and on all four outputs of batch_multiclass_nms; returns the
+    case's line with what the walk did (kernels/nms.walk_stats)."""
+    from cap2det_tpu_torch.kernels import nms as nms_kernel
+    from cap2det_tpu_torch.ops import nms as nms_ops
+
+    score_thresh, iou_thresh, cap, total = opts
+    got = nms_kernel.nms_mask(boxes, scores, score_thresh, iou_thresh, cap)
+    want = nms_kernel.plain_nms_mask(boxes, scores, score_thresh,
+                                     iou_thresh, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("nms: %s: the kernel's mask differs from the "
+                             "plain version's at %d of %d pairs" % (
+                                 label, int((got != want).sum()),
+                                 got.numel()))
+    outs = nms_ops.batch_multiclass_nms(
+        boxes, scores, score_thresh=score_thresh, iou_thresh=iou_thresh,
+        max_size_per_class=cap, max_total_size=total)
+    plain = nms_ops.merge_detections(boxes, scores, want, total)
+    for name, a, b in zip(NMS_OUTPUTS, outs, plain):
+        if not torch.equal(a, b):
+            raise AssertionError("nms: %s: %s differs from the plain "
+                                 "version's" % (label, name))
+    stats = nms_kernel.walk_stats(scores, got, score_thresh, cap)
+    ranks = stats["ranks"].float()
+    return {"case": label, "shape": list(scores.shape),
+            "score_thresh": score_thresh, "iou_thresh": iou_thresh,
+            "cap": cap, "candidates": int((scores > score_thresh).sum()),
+            "survivors": int(got.sum()),
+            "classes_at_cap": int((got.sum(1) == cap).sum()),
+            "num_detections": outs[0].tolist(),
+            "ranks_walked_mean": float(ranks.mean()),
+            "ranks_walked_max": int(ranks.max()),
+            "barrier_steps": int(stats["barriers"].sum()),
+            "barrier_steps_max": int(stats["barriers"].max()),
+            "iou_pairs": stats["iou_pairs"]}
+
+
+def time_nms(torch, line, boxes, scores, opts):
+    """Adds to a case's line the kernel's time alone (the order made
+    once), through its wrapper (argsort and kernel), the plain version's,
+    all by CUDA events, and the bound of this launch's work."""
+    from cap2det_tpu_torch.kernels import nms as nms_kernel
+
+    score_thresh, iou_thresh, cap, _ = opts
+    order = nms_kernel.rank_order(scores)
+    num_b, num_p, num_c = scores.shape
+    b_ms, b_by = bound_ms(
+        nms_kernel.nms_bytes(num_b, num_p, num_c),
+        nms_kernel.nms_flops(num_b, num_p, num_c, line["iou_pairs"]))
+    line.update(
+        kernel_ms=cuda_ms(lambda: nms_kernel._launch(
+            boxes, scores, order, score_thresh, iou_thresh, cap), NMS_TIMED),
+        wrapper_ms=cuda_ms(lambda: nms_kernel.nms_mask(
+            boxes, scores, score_thresh, iou_thresh, cap), NMS_TIMED),
+        plain_ms=cuda_ms(lambda: nms_kernel.plain_nms_mask(
+            boxes, scores, score_thresh, iou_thresh, cap), NMS_PLAIN_TIMED,
+            warmup=1),
+        bound_ms=b_ms, bound_by=b_by)
+    line["kernel_over_bound"] = line["kernel_ms"] / b_ms
+    return line
+
+
+def postprocess_cost(torch, model, args, calls):
+    """(CUDA-event ms a call, host-clock ms a call, bytes the call needs
+    beyond what was allocated before it) of model.postprocess(*args)."""
+    model.postprocess(*args)
+    ms = cuda_ms(lambda: model.postprocess(*args), calls, warmup=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.postprocess(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.postprocess(*args)
+    torch.cuda.synchronize()
+    return ms, host_ms, torch.cuda.max_memory_allocated() - base
+
+
+def phase_nms(torch, model, outs):
+    """The NMS kernel (csrc/nms.cu) against its plain version on the card,
+    bit for bit, at the shipped shapes and edge cases and on the serve
+    phase's real scores; its time beside its bound and the plain
+    version's; one image's postprocess with the kernel and with the plain
+    version, each with its time and the memory it needs."""
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.kernels import nms as nms_kernel
+    from cap2det_tpu_torch.ops import nms as nms_ops
+
+    cfg = schema.load_pipeline(os.path.join("configs", "voc07_inc2.pbtxt"))
+    options = cfg.model.cap2det_model
+    shipped = {name: (p.score_thresh, p.iou_thresh, p.max_size_per_class,
+                      p.max_total_size) for name, p in (
+                          ("midn", options.midn_post_processor),
+                          ("oicr", options.oicr_post_processor))}
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    cases = []
+    for name, opts in shipped.items():
+        cases += [("voc07 %s [1,2000,20], 1500 valid" % name,
+                   nms_inputs(torch, rng, [1500], 2000, 20), opts),
+                  ("coco17 %s [1,500,80]" % name,
+                   nms_inputs(torch, rng, [500], 500, 80), opts),
+                  ("B=2 %s [2,2000,20], 1500 and 1800 valid" % name,
+                   nms_inputs(torch, rng, [1500, 1800], 2000, 20), opts)]
+    oicr = shipped["oicr"]
+    cases += [("cap 5 binds", nms_inputs(torch, rng, [1500], 2000, 20),
+               oicr[:2] + (5,) + oicr[3:]),
+              ("no candidate", nms_inputs(torch, rng, [1500], 2000, 20,
+                                          zero=True), oicr),
+              ("tied scores", nms_inputs(torch, rng, [1500], 2000, 20,
+                                         tied=True), oicr)]
+    lines = []
+    for label, (boxes, scores), opts in cases:
+        line = check_nms_case(torch, label, boxes, scores, opts)
+        if label.startswith("coco17"):
+            time_nms(torch, line, boxes, scores, opts)
+        log("nms: " + json.dumps(line))
+        lines.append(line)
+    if lines[-3]["classes_at_cap"] < 1 or lines[-2]["survivors"]:
+        raise AssertionError("nms: the cap never bound, or a survivor "
+                             "without a candidate: %s, %s" % (
+                                 lines[-3], lines[-2]))
+
+    # The serve phase's real scores, as postprocess hands them to
+    # batch_multiclass_nms: the four iterations of each image.
+    real_bmn, real_mask = nms_ops.batch_multiclass_nms, nms_kernel.nms_mask
+    calls = []
+
+    def record(boxes, scores, **kw):
+        calls.append((boxes, scores.clone(), kw))
+        return real_bmn(boxes, scores, **kw)
+
+    post_args = []
+    for out in outs:
+        post_args.append((
+            {k: torch.from_numpy(v).cuda()
+             for k, v in out["proposal_scores"].items()},
+            torch.from_numpy(out["proposals"])[None].cuda(),
+            torch.tensor([out["num_proposals"]]).cuda()))
+        nms_ops.batch_multiclass_nms = record
+        try:
+            model.postprocess(*post_args[-1])
+        finally:
+            nms_ops.batch_multiclass_nms = real_bmn
+    per_image = len(calls) // len(outs)
+    row = {"max_abs_err": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
+           "library_ms": None}
+    nbytes = flops = 0
+    for i, (boxes, scores, kw) in enumerate(calls):
+        opts = (kw["score_thresh"], kw["iou_thresh"],
+                kw["max_size_per_class"], kw["max_total_size"])
+        label = "serve image %d iteration %d" % (i // per_image,
+                                                 i % per_image)
+        line = check_nms_case(torch, label, boxes, scores, opts)
+        if i < per_image:  # the first image's four launches, timed
+            time_nms(torch, line, boxes, scores, opts)
+            row["kernel_ms"] += line["kernel_ms"] / per_image
+            row["plain_ms"] += line["plain_ms"] / per_image
+            num_b, num_p, num_c = scores.shape
+            nbytes += nms_kernel.nms_bytes(num_b, num_p, num_c)
+            flops += nms_kernel.nms_flops(num_b, num_p, num_c,
+                                          line["iou_pairs"])
+        log("nms: " + json.dumps(line))
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes / per_image,
+                                                flops / per_image)
+
+    # One image's postprocess (softmax, mask, four NMS calls and merges)
+    # with the kernel and, for comparison, with the plain version.
+    kernel_cost = postprocess_cost(torch, model, post_args[0],
+                                   NMS_POST_TIMED)
+    # The NMS before the kernel, for its time and memory only.
+    nms_kernel.nms_mask = nms_kernel.plain_nms_mask
+    try:
+        plain_cost = postprocess_cost(torch, model, post_args[0], 1)
+    finally:
+        nms_kernel.nms_mask = real_mask
+    for label, (ms, host_ms, peak) in (("kernel", kernel_cost),
+                                       ("plain", plain_cost)):
+        log("nms: postprocess of one image with the %s NMS: %.4f ms (CUDA "
+            "events), %.4f ms (host clock), needs %d bytes beyond what was "
+            "allocated (max_memory_allocated)" % (label, ms, host_ms, peak))
+    log("nms: per launch at the serve shape, mean of an image's %d: kernel "
+        "%.4f ms, plain %.4f, bound %.6f (%s); phase %.1f s" % (
+            per_image, row["kernel_ms"], row["plain_ms"], row["bound_ms"],
+            row["bound_by"], time.perf_counter() - t0))
+    return row
 
 
 def phase_roi_grad(torch):
@@ -1840,7 +2076,8 @@ def write_train_records(directory, num_examples, image_hw, seed):
 
 
 PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
-            "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1}
+            "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1,
+            "nms": 0}
 
 
 def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
@@ -2153,8 +2390,8 @@ def phase_eval_daemon(torch):
     """The eval daemon at configs/voc07_inc2.pbtxt width (4 scales, P=2000,
     20 classes, 3 OICR iterations, bf16) over two checkpoints written by
     CheckpointManager.save of two seeded TrainStates: one row per
-    checkpoint, reports, promotion, launches K1 4x8x2 and K4 12x8x2 with
-    no backward kernel, each checkpoint's detections its own; seconds per
+    checkpoint, reports, promotion, launches K1 4x8x2, K4 12x8x2 and NMS
+    4x8x2 with no backward kernel, each checkpoint's detections its own; seconds per
     checkpoint and per image, the NMS share and peak memory per
     checkpoint; one image's postprocess card vs CPU bit for bit; then the
     export and evaluate CLIs in a subprocess on the same model_dir.
@@ -2247,7 +2484,8 @@ def phase_eval_daemon(torch):
         want = dict.fromkeys(KERNELS, 0)
         per_run = EVAL_RECORDS * len(EVAL_STEPS)
         want.update(roi_crop_maxpool=num_scales * per_run,
-                    pool_fwd=3 * num_scales * per_run)
+                    pool_fwd=3 * num_scales * per_run,
+                    nms=iterations * per_run)
         if launches != want:
             raise AssertionError("eval_daemon: launches %s, expected %s"
                                  % (launches, want))
@@ -2407,9 +2645,10 @@ def phase_overfit_map(torch):
     log("overfit_map: K2 %s in training" % (
         "launched %d times" % trained["roi_crop_maxpool_grad"]
         if trained["roi_crop_maxpool_grad"] else "did not launch"))
-    if min(evaluated["roi_crop_maxpool"], evaluated["pool_fwd"]) < 1:
-        raise AssertionError("overfit_map: the daemon launched %s"
-                             % evaluated)
+    if min(evaluated["roi_crop_maxpool"], evaluated["pool_fwd"],
+           evaluated["nms"]) < 1 or trained["nms"]:
+        raise AssertionError("overfit_map: training launched %s, the "
+                             "daemon %s" % (trained, evaluated))
 
 
 # The text model at configs/coco17_text.pbtxt width: data/coco_open_vocab.txt
@@ -3851,7 +4090,7 @@ GONE_SECS = 30.0
 # no K2, and K5 only for Mixed_5c.
 FROZEN_PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3,
                    "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
-                   "avgpool_grad": 1, "fused_optimizer": 1}
+                   "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0}
 
 
 def logged_launches(text, where):
@@ -4023,7 +4262,10 @@ def main(argv):
     phase_build()
     k1 = phase_roi(torch)
     k4 = phase_pool(torch)
-    phase_serve(torch, profile)
+    serve_launches, serve_model, serve_outs = phase_serve(torch, profile)
+    nms = phase_nms(torch, serve_model, serve_outs)
+    del serve_model, serve_outs
+    torch.cuda.empty_cache()
     k2 = phase_roi_grad(torch)
     k5, k6 = phase_pool_grad(torch)
     torch.cuda.empty_cache()
@@ -4073,14 +4315,14 @@ def main(argv):
         % json.dumps(eval_launches))
 
     # Launches: the train() run of the train_loop phase, the main path,
-    # which runs all six (the coco17 step phase, text_cap2det's and
-    # dataset_build's train() do too).
-    if min(launches.values()) < 1 or min(coco["launches"].values()) < 1 or (
-            min(text_launches.values()) < 1) or min(
-                dataset_launches.values()) < 1:
-        raise AssertionError("a kernel did not run in training: %s, %s, %s, "
-                             "%s" % (launches, coco["launches"],
-                                     text_launches, dataset_launches))
+    # which runs all six training kernels (the coco17 step phase,
+    # text_cap2det's and dataset_build's train() do too); a step runs no
+    # NMS, which the serve phase's images launch 4 times each.
+    trained = [launches, coco["launches"], text_launches, dataset_launches]
+    if min(v for counts in trained for k, v in counts.items()
+           if k != "nms") < 1 or any(counts["nms"] for counts in trained):
+        raise AssertionError("a kernel did not run in training, or NMS "
+                             "did: %s" % json.dumps(trained))
     rows = [
         ("roi_crop_maxpool", "roi_pool.cu", "kernels/roi_pool.py:1213", k1),
         ("pool_fwd", "pool.cu", "kernels/pool_grad.py:350", k4),
@@ -4092,7 +4334,13 @@ def main(argv):
         # XLA fuses on the TPU.
         ("fused_optimizer", "fused_optimizer.cu", "train/optimizers.py:184",
          fused),
+        # No Pallas kernel: the greedy pass's lax.fori_loop, which XLA
+        # compiles into the TPU's postprocess program.
+        ("nms", "nms.cu", "ops/nms.py:23", nms),
     ]
+    # Each kernel's launches on its path: training's for the six, serving's
+    # (the serve phase's three images) for NMS.
+    launches = dict(launches, nms=serve_launches["nms"])
     kernels = [
         {"name": name, "route": "cuda",
          "source": "cap2det_tpu_torch/csrc/" + source,

@@ -16,9 +16,10 @@ from cap2det_tpu_torch import bench
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.eval import evaluator
-from cap2det_tpu_torch.kernels import (build, fused_optimizer, pool_grad,
-                                       roi_pool)
+from cap2det_tpu_torch.kernels import (build, fused_optimizer, nms,
+                                       pool_grad, roi_pool)
 from cap2det_tpu_torch.models import frcnn, registry
+from cap2det_tpu_torch.ops import nms as nms_ops
 from cap2det_tpu_torch.ops import roi as roi_ops
 from cap2det_tpu_torch.train import optimizers, trainer
 import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
@@ -584,20 +585,21 @@ def test_update_params_prepares_again_on_the_card(cuda, tmp_path):
 
 
 def test_run_evaluation_launch_counts(cuda, tmp_path):
-    """Per image: K1 once and K4 three times per scale; no backward
-    kernel."""
+    """Per image: K1 once and K4 three times per scale, NMS once per OICR
+    iteration (three); no backward kernel."""
     cfg = _eval_setup(tmp_path)
     model = registry.build(cfg.model)
     counts = (roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
               pool_grad.maxpool_grad_launches,
-              pool_grad.avgpool_grad_launches)
+              pool_grad.avgpool_grad_launches, nms.launches)
     metrics, maps = evaluator.run_evaluation(cfg, model.init_params(0),
                                              model=model)
     torch.cuda.synchronize()
     delta = tuple(b - a for a, b in zip(counts, (
         roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
-        pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches)))
-    assert delta == (2 * 3, 3 * 2 * 3, 0, 0, 0)
+        pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches,
+        nms.launches)))
+    assert delta == (2 * 3, 3 * 2 * 3, 0, 0, 0, 3 * 3)
     assert metrics["num_examples"] == 3 and len(maps) == 3
 
 
@@ -814,3 +816,123 @@ def test_fused_optimizer_kernel_matches_plain(cuda, kind, clip):
             assert fused_optimizer.ulp_gap(
                 got_slots[name][off:off + n],
                 want_slots[name][off:off + n]) <= limit, name
+
+
+# -- greedy NMS ----------------------------------------------------------------
+
+
+def _nms_case(name):
+    """(boxes [B, P, 4], scores [B, P, C], score_thresh, iou_thresh, cap)
+    of an edge case, seeded; scores without ties unless the case is about
+    them."""
+    rng = np.random.default_rng(len(name))
+
+    def inputs(valid, num_p, num_c):
+        lo = rng.uniform(0.0, 0.8, (len(valid), num_p, 2))
+        boxes = np.concatenate(
+            [lo, lo + rng.uniform(0.05, 0.5, lo.shape)], -1).astype(
+                np.float32)
+        boxes[:, 1:2] = boxes[:, 1:2, [2, 3, 0, 1]]  # one box reversed
+        scores = np.zeros((len(valid), num_p, num_c), np.float32)
+        for b, n in enumerate(valid):
+            boxes[b, n:] = 0.0
+            rank = np.argsort(rng.random((n, num_c)), axis=0)
+            scores[b, :n] = (rank + 1) / (n + 1)
+        return boxes, scores
+
+    if name == "p1_c1":
+        boxes, scores = inputs([1], 1, 1)
+        return boxes, scores, 1e-5, 0.3, 100
+    if name == "p_not_a_block_multiple":
+        return (*inputs([290], 300, 3), 1e-5, 0.3, 100)
+    if name == "opt_in_shared_memory":  # 68,000 bytes of ranks
+        return (*inputs([4000], 4000, 2), 1e-5, 0.3, 100)
+    if name == "no_candidates":
+        boxes, scores = inputs([50], 50, 4)
+        return boxes, scores * 0.0, 1e-5, 0.3, 100
+    if name == "all_candidates":
+        return (*inputs([64], 64, 4), 0.0, 0.3, 100)
+    if name == "scores_at_the_threshold":
+        boxes, _ = inputs([64], 64, 4)
+        scores = np.ceil(rng.random((1, 64, 4)) * 4).astype(np.float32) / 4
+        return boxes, scores, 0.25, 0.3, 100  # 0.25 is no candidate
+    if name == "iou_at_the_threshold":
+        boxes, scores = inputs([8], 8, 2)
+        # Pairs whose IoU is exactly 0.5 and exactly 0.25 in float32.
+        boxes[0, :4] = [[0, 0, 1, 1], [0, 0, 1, 0.5], [2, 2, 3, 3],
+                        [2, 2, 3, 2.25]]
+        scores[0, :4] = [[0.99, 0.99], [0.98, 0.98], [0.97, 0.97],
+                         [0.96, 0.96]]
+        return boxes, scores, 1e-5, 0.5, 100
+    if name == "iou_at_the_lower_threshold":
+        boxes, scores, st, _, cap = _nms_case("iou_at_the_threshold")
+        return boxes, scores, st, 0.25, cap
+    if name == "zero_area":
+        boxes, scores = inputs([30], 30, 3)
+        boxes[0, ::2] = np.tile(boxes[0, ::2, :2], 2)  # points
+        boxes[0, 1::4] = [0.5, 0.5, 0.5, 0.5]  # the same point
+        return boxes, scores, 1e-5, 0.3, 100
+    if name == "non_finite":
+        boxes, scores = inputs([40], 40, 3)
+        boxes[0, 3, 1] = np.nan
+        boxes[0, 5] = [-np.inf, 0.1, np.inf, 0.4]
+        boxes[0, 6, 2] = np.inf
+        scores[0, 7, 0] = np.nan
+        return boxes, scores, 1e-5, 0.3, 100
+    if name.startswith("cap_"):
+        cap = {"cap_0": 0, "cap_1": 1, "cap_p": 60, "cap_above_p": 10 ** 12}
+        return (*inputs([60], 60, 3), 1e-5, 0.3, cap[name])
+    if name == "batch_valid_counts":
+        return (*inputs([120, 37, 0], 128, 5), 1e-5, 0.4, 8)
+    if name == "tied_scores":
+        boxes, _ = inputs([200], 200, 4)
+        scores = np.ceil(rng.random((1, 200, 4)) * 3).astype(np.float32) / 3
+        return boxes, scores, 1e-5, 0.3, 100
+    raise ValueError(name)
+
+
+_NMS_CASES = ["p1_c1", "p_not_a_block_multiple", "opt_in_shared_memory",
+              "no_candidates", "all_candidates", "scores_at_the_threshold",
+              "iou_at_the_threshold", "iou_at_the_lower_threshold",
+              "zero_area", "non_finite", "cap_0", "cap_1", "cap_p",
+              "cap_above_p", "batch_valid_counts", "tied_scores"]
+
+
+@pytest.mark.parametrize("name", _NMS_CASES)
+def test_nms_kernel_matches_plain(cuda, name):
+    """The kernel's mask and batch_multiclass_nms's four outputs equal the
+    plain version's on the card bit for bit, in one launch."""
+    boxes, scores, score_thresh, iou_thresh, cap = _nms_case(name)
+    boxes, scores = (torch.from_numpy(boxes).to(cuda),
+                     torch.from_numpy(scores).to(cuda))
+    before = nms.launches
+    got = nms.nms_mask(boxes, scores, score_thresh, iou_thresh, cap)
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1
+    want = nms.plain_nms_mask(boxes, scores, score_thresh, iou_thresh, cap)
+    assert torch.equal(got, want)
+    assert nms.launches == before + 1
+    outs = nms_ops.batch_multiclass_nms(
+        boxes, scores, score_thresh=score_thresh, iou_thresh=iou_thresh,
+        max_size_per_class=cap, max_total_size=25)
+    for a, b in zip(outs, nms_ops.merge_detections(boxes, scores, want, 25)):
+        # Bit for bit; a NaN box equals itself.
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    # An IoU equal to the threshold does not overlap (strict >).
+    if name == "iou_at_the_threshold":
+        assert got[0, :4, 0].tolist() == [True, True, True, True]
+    if name == "iou_at_the_lower_threshold":
+        assert got[0, :4, 0].tolist() == [True, False, True, True]
+    if name in ("no_candidates", "cap_0"):
+        assert not got.any()
+    if name == "scores_at_the_threshold":
+        assert not got[scores <= score_thresh].any()
+
+
+def test_nms_refuses_a_p_beyond_shared_memory(cuda):
+    num_p = nms.MAX_PROPOSALS + 1
+    before = nms.launches
+    with pytest.raises(ValueError, match=str(nms.MAX_PROPOSALS)):
+        nms.nms_mask(torch.zeros(1, num_p, 4, device=cuda),
+                     torch.zeros(1, num_p, 1, device=cuda), 1e-5, 0.3, 100)
+    assert nms.launches == before
