@@ -24,18 +24,23 @@ Phases (any failure ends the run with a nonzero exit code):
      hold the card's canvases to the CPU's bit for bit, time 12 images
      (median and spread) and one image by layer, and hold one scale's
      float32 scores on the card against the same scale run on the CPU;
- 4a. nms: hold the NMS kernel (csrc/nms.cu, one launch per
-     batch_multiclass_nms call for every image and class) against its
+ 4a. nms: hold the NMS kernels (csrc/nms.cu, one call per
+     batch_multiclass_nms call for every image and class: the overlap
+     bits, then a warp per (image, class) walking them) against their
      plain version (ops/nms._per_image_nms) on the card, bit for bit on
      the mask and on all four outputs: voc07's [1, 2000, 20] with 1500
      valid proposals, coco17's eval [1, 500, 80] and B=2, under both
      shipped threshold pairs (MIDN iou 0.4, OICR 0.3), a binding cap, no
      candidate, tied scores, and the serve phase's real scores (every
-     iteration of its three images); each case's walk (ranks walked,
-     mean and largest over classes; barrier steps); the kernel alone,
-     through its wrapper and the plain version timed by CUDA events
-     beside the bound, and one image's postprocess with the kernel and
-     with the plain version, each with its time and the memory it needs;
+     iteration of its three images); each stage alone against its plain
+     version (the overlap bits against plain_overlap_bits, the walk over
+     them against plain_walk); each case's walk (ranks walked,
+     survivors and groups of 32 ranks, mean and largest over classes)
+     and the mask's scratch bytes and pair tests; the kernels from a CUDA
+     graph (both, and each stage alone), host-launched, through their
+     wrapper and the plain version timed by CUDA events beside the
+     bound, and one image's postprocess with the kernels and with the
+     plain version, each with its time and the memory it needs;
   5. hold the ROI backward kernel (K2) against its fixed-point oracle (bit
      for bit) and its float32 plain version (within GRAD_TOL) at the coco17
      training shape (features [2, 64, 96, 576], P=500), in bfloat16 and
@@ -201,9 +206,10 @@ share from a trace of train_loop's steps.
 The kernels line's fused_optimizer row gives the kernel's time replayed
 from a CUDA graph as "ms" (launched from the host, the wrapper's Python
 checks of 62 leaves take longer than the kernel; both are printed). Its
-nms row gives one launch at the serve shape, the mean of an image's four
-(the order made beforehand), and the serve phase's launches; a training
-step launches no NMS, which the training checks require.
+nms row gives one call's two kernels at the serve shape replayed from a
+CUDA graph, the mean of an image's four (the order made beforehand; the
+host-launched time is printed beside), and the serve phase's launches; a
+training step launches no NMS, which the training checks require.
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": ...}.
@@ -821,9 +827,11 @@ def nms_inputs(torch, rng, valid, num_p, num_c, tied=False, zero=False):
 
 
 def check_nms_case(torch, label, boxes, scores, opts):
-    """The kernel against _per_image_nms on the card, bit for bit on the
-    mask and on all four outputs of batch_multiclass_nms; returns the
-    case's line with what the walk did (kernels/nms.walk_stats)."""
+    """The kernels against _per_image_nms on the card, bit for bit on the
+    mask and on all four outputs of batch_multiclass_nms, and each stage
+    alone against its plain version (the overlap bits, and the walk over
+    the plain bits); returns the case's line with what the walk did
+    (kernels/nms.walk_stats)."""
     from cap2det_tpu_torch.kernels import nms as nms_kernel
     from cap2det_tpu_torch.ops import nms as nms_ops
 
@@ -845,8 +853,19 @@ def check_nms_case(torch, label, boxes, scores, opts):
         if not torch.equal(a, b):
             raise AssertionError("nms: %s: %s differs from the plain "
                                  "version's" % (label, name))
+    bits = nms_kernel.plain_overlap_bits(boxes, iou_thresh)
+    order = nms_kernel.rank_order(scores)
+    if not torch.equal(nms_kernel._launch_bits(boxes, iou_thresh), bits):
+        raise AssertionError("nms: %s: the mask kernel's bits differ from "
+                             "plain_overlap_bits'" % label)
+    if not torch.equal(
+            nms_kernel._launch_walk(bits, scores, order, score_thresh, cap),
+            nms_kernel.plain_walk(bits, order, scores, score_thresh, cap)):
+        raise AssertionError("nms: %s: the walk kernel differs from "
+                             "plain_walk" % label)
     stats = nms_kernel.walk_stats(scores, got, score_thresh, cap)
     ranks = stats["ranks"].float()
+    num_b, num_p, _ = scores.shape
     return {"case": label, "shape": list(scores.shape),
             "score_thresh": score_thresh, "iou_thresh": iou_thresh,
             "cap": cap, "candidates": int((scores > score_thresh).sum()),
@@ -855,26 +874,43 @@ def check_nms_case(torch, label, boxes, scores, opts):
             "num_detections": outs[0].tolist(),
             "ranks_walked_mean": float(ranks.mean()),
             "ranks_walked_max": int(ranks.max()),
-            "barrier_steps": int(stats["barriers"].sum()),
-            "barrier_steps_max": int(stats["barriers"].max()),
-            "iou_pairs": stats["iou_pairs"]}
+            "survivors_per_class_mean": float(
+                stats["survivors"].float().mean()),
+            "survivors_per_class_max": int(stats["survivors"].max()),
+            "groups_mean": float(stats["groups"].float().mean()),
+            "groups_max": int(stats["groups"].max()),
+            "iou_pairs": stats["iou_pairs"],
+            "mask_pair_tests": nms_kernel.pair_tests(num_b, num_p),
+            "scratch_bytes": nms_kernel.scratch_bytes(num_b, num_p)}
 
 
 def time_nms(torch, line, boxes, scores, opts):
-    """Adds to a case's line the kernel's time alone (the order made
-    once), through its wrapper (argsort and kernel), the plain version's,
-    all by CUDA events, and the bound of this launch's work."""
+    """Adds to a case's line the kernels' time (both stages through
+    _launch, the order made once) host-launched and replayed from a CUDA
+    graph, each stage's alone from a graph, the wrapper's (argsort and
+    kernels) and the plain version's, all by CUDA events, and the bound
+    of this launch's work."""
     from cap2det_tpu_torch.kernels import nms as nms_kernel
 
     score_thresh, iou_thresh, cap, _ = opts
     order = nms_kernel.rank_order(scores)
+    bits = nms_kernel._launch_bits(boxes, iou_thresh)
     num_b, num_p, num_c = scores.shape
     b_ms, b_by = bound_ms(
         nms_kernel.nms_bytes(num_b, num_p, num_c),
         nms_kernel.nms_flops(num_b, num_p, num_c, line["iou_pairs"]))
+
+    def kernels():
+        return nms_kernel._launch(boxes, scores, order, score_thresh,
+                                  iou_thresh, cap)
+
     line.update(
-        kernel_ms=cuda_ms(lambda: nms_kernel._launch(
-            boxes, scores, order, score_thresh, iou_thresh, cap), NMS_TIMED),
+        kernel_ms=device_ms(kernels),
+        host_launched_ms=cuda_ms(kernels, NMS_TIMED),
+        bits_ms=device_ms(lambda: nms_kernel._launch_bits(boxes,
+                                                          iou_thresh)),
+        walk_ms=device_ms(lambda: nms_kernel._launch_walk(
+            bits, scores, order, score_thresh, cap)),
         wrapper_ms=cuda_ms(lambda: nms_kernel.nms_mask(
             boxes, scores, score_thresh, iou_thresh, cap), NMS_TIMED),
         plain_ms=cuda_ms(lambda: nms_kernel.plain_nms_mask(
@@ -903,10 +939,11 @@ def postprocess_cost(torch, model, args, calls):
 
 
 def phase_nms(torch, model, outs):
-    """The NMS kernel (csrc/nms.cu) against its plain version on the card,
-    bit for bit, at the shipped shapes and edge cases and on the serve
-    phase's real scores; its time beside its bound and the plain
-    version's; one image's postprocess with the kernel and with the plain
+    """The NMS kernels (csrc/nms.cu: the overlap mask, then the walk)
+    against their plain version on the card, bit for bit, and each stage
+    against its own, at the shipped shapes and edge cases and on the serve
+    phase's real scores; their time beside their bound and the plain
+    version's; one image's postprocess with the kernels and with the plain
     version, each with its time and the memory it needs."""
     from cap2det_tpu_torch.config import schema
     from cap2det_tpu_torch.kernels import nms as nms_kernel
@@ -971,6 +1008,8 @@ def phase_nms(torch, model, outs):
     per_image = len(calls) // len(outs)
     row = {"max_abs_err": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
            "library_ms": None}
+    parts = dict.fromkeys(("host_launched_ms", "bits_ms", "walk_ms",
+                           "wrapper_ms"), 0.0)
     nbytes = flops = 0
     for i, (boxes, scores, kw) in enumerate(calls):
         opts = (kw["score_thresh"], kw["iou_thresh"],
@@ -982,6 +1021,8 @@ def phase_nms(torch, model, outs):
             time_nms(torch, line, boxes, scores, opts)
             row["kernel_ms"] += line["kernel_ms"] / per_image
             row["plain_ms"] += line["plain_ms"] / per_image
+            for key in parts:
+                parts[key] += line[key] / per_image
             num_b, num_p, num_c = scores.shape
             nbytes += nms_kernel.nms_bytes(num_b, num_p, num_c)
             flops += nms_kernel.nms_flops(num_b, num_p, num_c,
@@ -1005,10 +1046,13 @@ def phase_nms(torch, model, outs):
         log("nms: postprocess of one image with the %s NMS: %.4f ms (CUDA "
             "events), %.4f ms (host clock), needs %d bytes beyond what was "
             "allocated (max_memory_allocated)" % (label, ms, host_ms, peak))
-    log("nms: per launch at the serve shape, mean of an image's %d: kernel "
-        "%.4f ms, plain %.4f, bound %.6f (%s); phase %.1f s" % (
-            per_image, row["kernel_ms"], row["plain_ms"], row["bound_ms"],
-            row["bound_by"], time.perf_counter() - t0))
+    log("nms: per call at the serve shape, mean of an image's %d: kernels "
+        "%.4f ms from a CUDA graph (mask %.4f + walk %.4f), host-launched "
+        "%.4f, through the wrapper %.4f, plain %.4f, bound %.6f (%s); "
+        "phase %.1f s" % (
+            per_image, row["kernel_ms"], parts["bits_ms"], parts["walk_ms"],
+            parts["host_launched_ms"], parts["wrapper_ms"], row["plain_ms"],
+            row["bound_ms"], row["bound_by"], time.perf_counter() - t0))
     return row
 
 

@@ -845,7 +845,9 @@ def _nms_case(name):
         return boxes, scores, 1e-5, 0.3, 100
     if name == "p_not_a_block_multiple":
         return (*inputs([290], 300, 3), 1e-5, 0.3, 100)
-    if name == "opt_in_shared_memory":  # 68,000 bytes of ranks
+    # 68,000 bytes of ranks in a one-block-per-class kernel; the staged
+    # walk takes 51,200 (it opts in above 48 KB from P = 3,969).
+    if name == "opt_in_shared_memory":
         return (*inputs([4000], 4000, 2), 1e-5, 0.3, 100)
     if name == "no_candidates":
         boxes, scores = inputs([50], 50, 4)
@@ -927,6 +929,81 @@ def test_nms_kernel_matches_plain(cuda, name):
         assert not got.any()
     if name == "scores_at_the_threshold":
         assert not got[scores <= score_thresh].any()
+
+
+@pytest.mark.parametrize("name", _NMS_CASES)
+def test_nms_walk_kernel_matches_plain_walk(cuda, name):
+    """The walk kernel alone, over the plain overlap bits, equals the
+    walk's plain version bit for bit; it counts no launch."""
+    boxes, scores, score_thresh, iou_thresh, cap = _nms_case(name)
+    boxes, scores = (torch.from_numpy(boxes).to(cuda),
+                     torch.from_numpy(scores).to(cuda))
+    bits = nms.plain_overlap_bits(boxes, iou_thresh)
+    order = nms.rank_order(scores)
+    before = nms.launches
+    got = nms._launch_walk(bits, scores, order, score_thresh, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms.plain_walk(bits, order, scores,
+                                           score_thresh, cap))
+    assert nms.launches == before
+
+
+@pytest.mark.parametrize("num_p", [1, 33, 2000, 2001, 13613])
+def test_nms_bits_kernel_matches_plain(cuda, num_p):
+    """The mask kernel's words equal plain_overlap_bits' bit for bit, the
+    bits past P and the pad words included, at one box, a word and one, the serve shape,
+    one past it and the old kernel's limit of 13,613 proposals."""
+    rng = np.random.default_rng(num_p)
+    lo = rng.uniform(0.0, 0.8, (2, num_p, 2))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.02, 0.5, lo.shape)],
+                           -1).astype(np.float32)
+    boxes[1, 0] = boxes[1, 0, [2, 3, 0, 1]]  # a reversed box
+    boxes[:, max(1, num_p // 2):] = 0.0  # padded proposals: zero boxes
+    boxes = torch.from_numpy(boxes).to(cuda)
+    for iou_thresh in (0.3, 0.4):
+        got = nms._launch_bits(boxes, iou_thresh)
+        torch.cuda.synchronize()
+        assert got.shape == (2, num_p, nms.row_words(num_p))
+        assert torch.equal(got, nms.plain_overlap_bits(boxes, iou_thresh))
+    assert nms.scratch_bytes(2, num_p) == got.numel() * 4
+
+
+@pytest.mark.parametrize("name", _NMS_CASES)
+def test_nms_bits_kernel_mirrors_tiles_exactly(cuda, name):
+    """The mask kernel tests each pair of 32-box tiles once and writes
+    both orientations: on every edge case's boxes (zero-area, reversed,
+    NaN and infinite ones among them) its words equal the plain version's,
+    which computes every pair, and the mask is symmetric."""
+    boxes, _, _, iou_thresh, _ = _nms_case(name)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    got = nms._launch_bits(boxes, iou_thresh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms.plain_overlap_bits(boxes, iou_thresh))
+    num_p = boxes.shape[1]
+    shifts = torch.arange(32, device=cuda, dtype=torch.int32)
+    over = ((got[..., None] >> shifts) & 1).bool().flatten(-2)[..., :num_p]
+    assert torch.equal(over, over.transpose(1, 2))
+
+
+@pytest.mark.parametrize("num_p", [13613, nms.MAX_PROPOSALS])
+def test_nms_accepts_the_old_limit(cuda, num_p):
+    """P = 13,613, the one-block-per-class kernel's limit (~23 MB of
+    scratch), and the walk's own limit (over 48 KB of shared memory,
+    opted in), through nms_mask: one launch, bit for bit with the plain
+    pass."""
+    rng = np.random.default_rng(13)
+    boxes = torch.from_numpy(np.clip(_boxes(rng, 1, num_p), 0.0, 1.0)).to(
+        cuda)
+    scores = torch.from_numpy(rng.random((1, num_p, 1), np.float32)).to(cuda)
+    assert nms.scratch_bytes(1, num_p) == num_p * nms.row_words(num_p) * 4
+    assert nms.scratch_bytes(1, 13613) == 13613 * 428 * 4
+    before = nms.launches
+    got = nms.nms_mask(boxes, scores, 1e-5, 0.3, 100)
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1
+    assert torch.equal(got, nms.plain_nms_mask(boxes, scores, 1e-5, 0.3,
+                                               100))
+    assert got.sum() == 100
 
 
 def test_nms_refuses_a_p_beyond_shared_memory(cuda):
