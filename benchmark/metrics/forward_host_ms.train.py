@@ -1,0 +1,13 @@
+"""``forward_host_ms.train``: host milliseconds a step inside the
+program's ``cap2det/step/forward`` span (``Cap2DetModel.loss``: the BN
+fold, both stages, the heads and the losses), matched by exact name;
+None where the program has no such span."""
+
+SPAN = "cap2det/step/forward"
+
+
+def read(traced):
+    spans = traced["trace"].spans.get(SPAN)
+    if not spans:
+        return None
+    return traced["trace"].host_us(spans) / 1e3 / traced["units"]

@@ -45,6 +45,7 @@ from cap2det_tpu_torch.fields import DetectionFields, InputFields
 from cap2det_tpu_torch.models import registry
 from cap2det_tpu_torch.train import checkpoint as ckpt_lib
 from cap2det_tpu_torch.train.metrics import MetricsWriter
+from cap2det_tpu_torch.utils.spans import span
 
 log = logging.getLogger("cap2det_torch.eval")
 
@@ -92,55 +93,65 @@ class MultiScalePredictor:
             raise RuntimeError(
                 "MultiScalePredictor has no params: pass them to the "
                 "constructor or call update_params first")
+        with span("cap2det/predict", example.get("image_id")):
+            return self._predict(example)
+
+    def _predict(self, example):
         model = self._model
         dev = model.device
         image = example.get("image")
         if image is None:
             image = pipeline_lib.decode_jpeg(example["image_encoded"])
-        image = torch.as_tensor(np.array(image, dtype=np.uint8), device=dev)
-        h, w = image.shape[:2]
-        landscape = w >= h
         max_p = self._reader.max_num_proposals
         props_true = np.zeros((max_p, 4), np.float32)
         n_props = min(len(example["proposals"]), max_p)
         props_true[:n_props] = example["proposals"][:n_props]
-        props = torch.from_numpy(props_true).to(dev)
-        num = torch.tensor([n_props], dtype=torch.int32, device=dev)
+        with span("cap2det/predict/upload"):
+            image = torch.as_tensor(np.array(image, dtype=np.uint8),
+                                    device=dev)
+            props = torch.from_numpy(props_true).to(dev)
+            num = torch.tensor([n_props], dtype=torch.int32, device=dev)
+        h, w = image.shape[:2]
+        landscape = w >= h
 
-        score_sum = None
+        scores = []
         for min_dim in self._min_dims:
-            short, long = pipeline_lib.compute_canvas(
-                min_dim, 1.0, self._aspect_cap, self._multiple
-            )
-            ch, cw = (short, long) if landscape else (long, short)
-            canvas, (new_h, new_w) = pipeline_lib.fit_image_to_canvas(
-                image, (ch, cw)
-            )
-            fy, fx = new_h / ch, new_w / cw
-            scale_vec = torch.tensor([fy, fx, fy, fx], dtype=torch.float32,
-                                     device=dev)
-            preds = model.predictions(self._prepared, {
-                "image": canvas[None],
-                "proposals": (props * scale_vec)[None],
-                "num_proposals": num,
-            })
-            scores = {k: preds[k] for k in model.score_keys()}
-            if score_sum is None:
-                score_sum = scores
-            else:
-                score_sum = {k: score_sum[k] + scores[k] for k in score_sum}
+            with span("cap2det/predict/resize"):
+                short, long = pipeline_lib.compute_canvas(
+                    min_dim, 1.0, self._aspect_cap, self._multiple
+                )
+                ch, cw = (short, long) if landscape else (long, short)
+                canvas, (new_h, new_w) = pipeline_lib.fit_image_to_canvas(
+                    image, (ch, cw)
+                )
+                fy, fx = new_h / ch, new_w / cw
+                scale_vec = torch.tensor([fy, fx, fy, fx],
+                                         dtype=torch.float32, device=dev)
+            with span("cap2det/predict/forward"):
+                preds = model.predictions(self._prepared, {
+                    "image": canvas[None],
+                    "proposals": (props * scale_vec)[None],
+                    "num_proposals": num,
+                })
+            scores.append({k: preds[k] for k in model.score_keys()})
 
-        # A tensor divisor: CUDA turns division by a Python scalar into a
-        # reciprocal multiply, up to one ulp off numpy's quotient.
-        num_scales = torch.tensor(float(len(self._min_dims)), device=dev)
-        score_mean = {k: v / num_scales for k, v in score_sum.items()}
+        with span("cap2det/predict/mean"):
+            score_sum = scores[0]
+            for more in scores[1:]:
+                score_sum = {k: score_sum[k] + more[k] for k in score_sum}
+            # A tensor divisor: CUDA turns division by a Python scalar into
+            # a reciprocal multiply, up to one ulp off numpy's quotient.
+            num_scales = torch.tensor(float(len(self._min_dims)), device=dev)
+            score_mean = {k: v / num_scales for k, v in score_sum.items()}
         results = model.postprocess(score_mean, props[None], num)
-        out = {k: v[0].cpu().numpy() for k, v in results.items()}
+        with span("cap2det/predict/fetch"):
+            out = {k: v[0].cpu().numpy() for k, v in results.items()}
+            proposal_scores = {
+                k: v.cpu().numpy() for k, v in score_mean.items()
+            }
         out["image_id"] = example.get("image_id")
         out["image_hw"] = (h, w)
-        out["proposal_scores"] = {
-            k: v.cpu().numpy() for k, v in score_mean.items()
-        }
+        out["proposal_scores"] = proposal_scores
         out["num_proposals"] = n_props
         out["proposals"] = props_true
         return out

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from cap2det_tpu_torch.kernels import build
+from cap2det_tpu_torch.utils.spans import span
 
 KINDS = {"sgd": 0, "adagrad": 1, "adam": 2, "rmsprop": 3, "momentum": 4}
 # Each kind's slots, by name, at their place in the kernel's slot array.
@@ -307,9 +308,10 @@ def fused_update(rule, leaf_set, params, grads, slots, lr, count,
     """
     if not params:
         return
-    if all(t.device.type == "cpu"
-           for t in [*params, *grads, *slots.values()]):
-        fused_update_reference(rule, leaf_set, params, grads, slots, lr,
-                               count, clip_norm)
-        return
-    _launch(rule, leaf_set, params, grads, slots, lr, count, clip_norm)
+    with span("cap2det/kernel/fused_optimizer"):
+        if all(t.device.type == "cpu"
+               for t in [*params, *grads, *slots.values()]):
+            fused_update_reference(rule, leaf_set, params, grads, slots, lr,
+                                   count, clip_norm)
+            return
+        _launch(rule, leaf_set, params, grads, slots, lr, count, clip_norm)

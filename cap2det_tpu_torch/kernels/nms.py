@@ -22,6 +22,7 @@ import torch
 
 from cap2det_tpu_torch.kernels import build
 from cap2det_tpu_torch.ops import boxes as box_ops
+from cap2det_tpu_torch.utils.spans import span
 
 # The walk's shared memory (csrc/nms.cu), a block per class: a mask row of
 # removed bits and a ring of at least MIN_STAGES groups of 32 staged mask
@@ -252,12 +253,13 @@ def nms_mask(boxes, scores, score_thresh, iou_thresh, max_per_class):
     [B, P, C] float32: the kernels for CUDA tensors, the plain version for
     CPU tensors."""
     _check(boxes, scores)
-    if not scores.is_cuda:
-        return plain_nms_mask(boxes, scores, score_thresh, iou_thresh,
-                              max_per_class)
-    boxes, scores = boxes.contiguous(), scores.contiguous()
-    return _launch(boxes, scores, rank_order(scores), score_thresh,
-                   iou_thresh, max_per_class)
+    with span("cap2det/kernel/nms"):
+        if not scores.is_cuda:
+            return plain_nms_mask(boxes, scores, score_thresh, iou_thresh,
+                                  max_per_class)
+        boxes, scores = boxes.contiguous(), scores.contiguous()
+        return _launch(boxes, scores, rank_order(scores), score_thresh,
+                       iou_thresh, max_per_class)
 
 
 def walk_stats(scores, keep, score_thresh, max_per_class):

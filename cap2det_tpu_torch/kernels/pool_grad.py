@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from cap2det_tpu_torch.kernels import build
+from cap2det_tpu_torch.utils.spans import span
 
 KINDS = ("pool_max", "pool_avg")
 
@@ -300,9 +301,10 @@ def pool_fwd(x, kind, kernel, stride):
     "pool_max" or "pool_avg". Not differentiable: see ``pool_same``."""
     _check_kind(kind)
     _check_args("pool_fwd", x.shape, kernel, stride)
-    if x.is_cuda:
-        return _launch_fwd(x, kind, kernel, stride)
-    return pool_same_plain(x, kind, kernel, stride)
+    with span("cap2det/kernel/pool_fwd"):
+        if x.is_cuda:
+            return _launch_fwd(x, kind, kernel, stride)
+        return pool_same_plain(x, kind, kernel, stride)
 
 
 def maxpool_grad(x, g, kernel, stride):
@@ -312,15 +314,16 @@ def maxpool_grad(x, g, kernel, stride):
     global maxpool_grad_untiled_launches
     _check_args("maxpool_grad", x.shape, kernel, stride)
     _check_g("maxpool_grad", x.shape, g, kernel, stride)
-    if x.is_cuda or g.is_cuda:
-        dx, tiled = _launch_grad(x, g, tuple(x.shape), x.dtype, "pool_max",
-                                 kernel, stride)
-        if tiled is not None:
-            maxpool_grad_launches += 1
-            maxpool_grad_tiled_launches += tiled
-            maxpool_grad_untiled_launches += not tiled
-        return dx
-    return maxpool_grad_plain(x, g, kernel, stride)
+    with span("cap2det/kernel/maxpool_grad"):
+        if x.is_cuda or g.is_cuda:
+            dx, tiled = _launch_grad(x, g, tuple(x.shape), x.dtype,
+                                     "pool_max", kernel, stride)
+            if tiled is not None:
+                maxpool_grad_launches += 1
+                maxpool_grad_tiled_launches += tiled
+                maxpool_grad_untiled_launches += not tiled
+            return dx
+        return maxpool_grad_plain(x, g, kernel, stride)
 
 
 def avgpool_grad(x_shape, dtype, g, kernel, stride):
@@ -331,15 +334,16 @@ def avgpool_grad(x_shape, dtype, g, kernel, stride):
     x_shape = tuple(x_shape)
     _check_args("avgpool_grad", x_shape, kernel, stride)
     _check_g("avgpool_grad", x_shape, g, kernel, stride)
-    if g.is_cuda:
-        dx, tiled = _launch_grad(None, g, x_shape, dtype, "pool_avg", kernel,
-                                 stride)
-        if tiled is not None:
-            avgpool_grad_launches += 1
-            avgpool_grad_tiled_launches += tiled
-            avgpool_grad_untiled_launches += not tiled
-        return dx
-    return avgpool_grad_plain(x_shape, dtype, g, kernel, stride)
+    with span("cap2det/kernel/avgpool_grad"):
+        if g.is_cuda:
+            dx, tiled = _launch_grad(None, g, x_shape, dtype, "pool_avg",
+                                     kernel, stride)
+            if tiled is not None:
+                avgpool_grad_launches += 1
+                avgpool_grad_tiled_launches += tiled
+                avgpool_grad_untiled_launches += not tiled
+            return dx
+        return avgpool_grad_plain(x_shape, dtype, g, kernel, stride)
 
 
 class _PoolSame(torch.autograd.Function):

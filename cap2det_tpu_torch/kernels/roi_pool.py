@@ -26,6 +26,7 @@ from torch.autograd.function import once_differentiable
 
 from cap2det_tpu_torch.kernels import build
 from cap2det_tpu_torch.ops import roi as roi_ops
+from cap2det_tpu_torch.utils.spans import span
 
 # The JAX package's alternative TPU formulations compute the same function
 # forward and backward ("mm" is K1-mm/K2-mm there).
@@ -311,12 +312,13 @@ def roi_crop_maxpool_grad(features, boxes, grad, crop_size, pool_kernel=2,
     """
     _check_grad_args(features, boxes, grad, crop_size, pool_kernel,
                      pool_stride)
-    if features.is_cuda or boxes.is_cuda or grad.is_cuda:
-        return _launch_grad(features, boxes, grad, crop_size, pool_kernel,
-                            pool_stride)
-    return roi_ops.crop_resize_maxpool_grad(
-        features, boxes, grad, crop_size, pool_kernel, pool_stride
-    )
+    with span("cap2det/kernel/roi_crop_maxpool_grad"):
+        if features.is_cuda or boxes.is_cuda or grad.is_cuda:
+            return _launch_grad(features, boxes, grad, crop_size,
+                                pool_kernel, pool_stride)
+        return roi_ops.crop_resize_maxpool_grad(
+            features, boxes, grad, crop_size, pool_kernel, pool_stride
+        )
 
 
 class _RoiCropMaxpool(torch.autograd.Function):
@@ -361,5 +363,6 @@ def roi_crop_maxpool(features, boxes, crop_size, pool_kernel=2,
     if impl not in IMPLS:
         raise ValueError("roi_crop_maxpool: unknown impl %r" % (impl,))
     _check_args("roi_crop_maxpool", features, boxes)
-    return _RoiCropMaxpool.apply(features, boxes, crop_size, pool_kernel,
-                                 pool_stride)
+    with span("cap2det/kernel/roi_crop_maxpool"):
+        return _RoiCropMaxpool.apply(features, boxes, crop_size,
+                                     pool_kernel, pool_stride)

@@ -23,6 +23,7 @@ from cap2det_tpu_torch.ops import losses as loss_ops
 from cap2det_tpu_torch.ops import masked, nms
 from cap2det_tpu_torch.ops import softmax as softmax_ops
 from cap2det_tpu_torch.text import extractors as extractors_lib
+from cap2det_tpu_torch.utils.spans import span
 
 FEATURE_DIM = 1024
 
@@ -116,7 +117,8 @@ class Cap2DetModel(ModelBase):
         into its convs in ``compute_dtype`` (``frcnn.prepare``); the heads
         as they are. Serving makes it once per set of params; ``loss``
         makes it on every step, differentiably."""
-        return {**params, **frcnn.prepare(params, self._compute_dtype)}
+        with span("cap2det/model/bn_fold"):
+            return {**params, **frcnn.prepare(params, self._compute_dtype)}
 
     # -- batches ----------------------------------------------------------------
 
@@ -135,6 +137,10 @@ class Cap2DetModel(ModelBase):
         it. The page-locked tensors ride along under "pinned": the caller
         keeps the batch until the step that reads it has been queued.
         """
+        with span("cap2det/batch/place"):
+            return self._device_batch(host_batch)
+
+    def _device_batch(self, host_batch):
         dev = self._device
         arrays = {
             "image": host_batch[InputFields.image],
@@ -173,9 +179,14 @@ class Cap2DetModel(ModelBase):
             is_training=is_training, generator=generator,
             second_stage_remat=self._second_stage_remat,
         )
-        class_logits, proposal_scores, proba_r_given_c = wsod.midn_head(
-            prepared["midn"], features, mask
-        )
+        with span("cap2det/model/heads"):
+            class_logits, proposal_scores, proba_r_given_c = wsod.midn_head(
+                prepared["midn"], features, mask
+            )
+            oicr_scores = [
+                wsod.fc(prepared["oicr"]["iter%d" % (i + 1)], features)
+                for i in range(self._options.oicr_iterations)
+            ]
         preds = {
             Cap2DetPredictions.midn_class_logits: class_logits,
             Cap2DetPredictions.midn_proba_r_given_c: proba_r_given_c,
@@ -184,10 +195,10 @@ class Cap2DetModel(ModelBase):
             DetectionFields.num_proposals: num_proposals,
             "proposal_mask": mask,
         }
-        for i in range(self._options.oicr_iterations):
+        for i, scores in enumerate(oicr_scores):
             preds[
                 Cap2DetPredictions.oicr_proposal_scores + "_at_%d" % (i + 1)
-            ] = wsod.fc(prepared["oicr"]["iter%d" % (i + 1)], features)
+            ] = scores
         return preds
 
     def loss(self, params, batch, generator=None, is_training=True):
@@ -195,9 +206,13 @@ class Cap2DetModel(ModelBase):
         CE, each OICR iteration's CE and the heads' L2, with the JAX
         package's keys and weights. The BN fold runs inside (``prepare``),
         so gradients reach the live params."""
-        options = self._options
         preds = self.predictions(self.prepare(params), batch,
                                  is_training=is_training, generator=generator)
+        with span("cap2det/model/losses"):
+            return self._losses(params, batch, preds)
+
+    def _losses(self, params, batch, preds):
+        options = self._options
         labels = torch.as_tensor(batch["labels"], dtype=torch.float32,
                                  device=self._device)
         loss_dict = {}
@@ -254,7 +269,8 @@ class Cap2DetModel(ModelBase):
             else:
                 post_fn = self._oicr_post
                 # The same bits on the card and the CPU (ops/softmax.py).
-                scores = softmax_ops.softmax(scores)[:, :, 1:]
+                with span("cap2det/postprocess/softmax"):
+                    scores = softmax_ops.softmax(scores)[:, :, 1:]
             if valid is not None:
                 scores = scores * valid
             num, boxes, det_scores, det_classes = post_fn(proposals, scores)

@@ -43,6 +43,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from cap2det_tpu_torch.kernels import pool_grad
 from cap2det_tpu_torch.params import truncated_normal
+from cap2det_tpu_torch.utils.spans import span
 
 BN_EPSILON = 0.001
 
@@ -320,16 +321,17 @@ def first_stage(prepared, images):
     """Preprocessed image [B, H, W, 3] -> Mixed_4e features
     [B, H/16, W/16, 576] (NHWC, contiguous) in the dtype of the weights
     that ``prepare`` made."""
-    p = prepared["InceptionV2"]
-    x = _to_nchw(images.contiguous())
-    x = _conv_relu(p["Conv2d_1a_7x7"], x, 2)
-    x = pool_dense(x, "pool_max", 3, 2)
-    x = _conv_relu(p["Conv2d_2b_1x1"], x, 1)
-    x = _conv_relu(p["Conv2d_2c_3x3"], x, 1)
-    x = pool_dense(x, "pool_max", 3, 2)
-    for name in FIRST_BLOCKS:
-        x = _block(p[name], _BLOCKS_FIRST[name], x, pool_dense)
-    return _to_nhwc(x)
+    with span("cap2det/model/first_stage"):
+        p = prepared["InceptionV2"]
+        x = _to_nchw(images.contiguous())
+        x = _conv_relu(p["Conv2d_1a_7x7"], x, 2)
+        x = pool_dense(x, "pool_max", 3, 2)
+        x = _conv_relu(p["Conv2d_2b_1x1"], x, 1)
+        x = _conv_relu(p["Conv2d_2c_3x3"], x, 1)
+        x = pool_dense(x, "pool_max", 3, 2)
+        for name in FIRST_BLOCKS:
+            x = _block(p[name], _BLOCKS_FIRST[name], x, pool_dense)
+        return _to_nhwc(x)
 
 
 def second_stage(prepared, rois, remat=False):
@@ -342,17 +344,18 @@ def second_stage(prepared, rois, remat=False):
     launch too) to rebuild what its own backward reads. Values and
     gradients are the same bits; under ``torch.no_grad`` the path is the
     plain one."""
-    p = prepared["InceptionV2"]
-    x = _to_nchw(rois.contiguous())
-    checkpointed = remat and torch.is_grad_enabled()
-    for name in SECOND_BLOCKS:
-        if checkpointed:
-            # No block draws random numbers (the FRCNN dropout acts on the
-            # first-stage map and the pooled features), so the recompute
-            # needs no saved RNG state.
-            x = torch_checkpoint.checkpoint(
-                _block, p[name], _BLOCKS_SECOND[name], x, pool_roi,
-                use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block(p[name], _BLOCKS_SECOND[name], x, pool_roi)
-    return _to_nhwc(x)
+    with span("cap2det/model/second_stage"):
+        p = prepared["InceptionV2"]
+        x = _to_nchw(rois.contiguous())
+        checkpointed = remat and torch.is_grad_enabled()
+        for name in SECOND_BLOCKS:
+            if checkpointed:
+                # No block draws random numbers (the FRCNN dropout acts on the
+                # first-stage map and the pooled features), so the recompute
+                # needs no saved RNG state.
+                x = torch_checkpoint.checkpoint(
+                    _block, p[name], _BLOCKS_SECOND[name], x, pool_roi,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _block(p[name], _BLOCKS_SECOND[name], x, pool_roi)
+        return _to_nhwc(x)

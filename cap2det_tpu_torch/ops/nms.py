@@ -22,6 +22,7 @@ import torch
 
 from cap2det_tpu_torch.kernels import nms as nms_kernel
 from cap2det_tpu_torch.ops import boxes as box_ops
+from cap2det_tpu_torch.utils.spans import span
 
 
 def _per_image_nms(boxes, scores, iou_thresh, score_thresh, max_per_class):
@@ -65,9 +66,11 @@ def batch_multiclass_nms(
       detection_scores: [B, max_total_size].
       detection_classes: [B, max_total_size] float, **1-based** class ids.
     """
-    selected = nms_kernel.nms_mask(boxes, scores, score_thresh, iou_thresh,
-                                   max_size_per_class)  # [B, P, C]
-    return merge_detections(boxes, scores, selected, max_total_size)
+    with span("cap2det/postprocess/nms"):
+        selected = nms_kernel.nms_mask(boxes, scores, score_thresh,
+                                       iou_thresh,
+                                       max_size_per_class)  # [B, P, C]
+        return merge_detections(boxes, scores, selected, max_total_size)
 
 
 def merge_detections(boxes, scores, selected, max_total_size):

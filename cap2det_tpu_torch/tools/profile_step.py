@@ -3,11 +3,12 @@ host activity, from ``torch.profiler`` (port of ``tools/profile_step.py``).
 
 Builds the SAME step as ``cap2det_tpu_torch/bench.py`` (its config,
 shapes, weights and placed batch), warms it up, and traces N steps with
-the CPU and CUDA activities. Each step runs inside a ``bench_step``
-span, and the step's layers inside spans of their own (the loss, the BN
-fold, both stages, the five kernel wrappers, the optimizer), so an idle
-gap of the card can be tied to what the host was doing. Prints JSON
-lines:
+the CPU and CUDA activities. The trace holds the port's own spans
+(``utils/spans.py``, recorded while a profiler records): each step in
+``cap2det/step``, its forward, backward and update, the model's layers
+(``cap2det/model/...``) and the kernel wrappers
+(``cap2det/kernel/...``), so an idle gap of the card can be tied to what
+the host was doing. Prints JSON lines:
 
 * ``total_device_ms_per_step``, with the steps' kernel launches, which
   must be the bench's;
@@ -42,7 +43,6 @@ import json
 import os
 import tempfile
 import time
-import types
 
 import torch
 
@@ -51,53 +51,9 @@ from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.tools import benchlib
 
 WARMUP_STEPS = 3
-STEP_SPAN = "bench_step"
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function",
                    "cuda_runtime", "cuda_driver")
 CONV_OPS = ("aten::convolution", "aten::convolution_backward")
-
-
-@contextlib.contextmanager
-def host_spans(targets):
-    """Wraps each (owner, attribute, label) so that every call runs inside
-    a ``record_function(label)`` span. Module attributes are restored and
-    instance attributes deleted on exit."""
-    patched = []
-    for owner, name, label in targets:
-        real = getattr(owner, name)
-
-        def spanned(*args, _real=real, _label=label, **kwargs):
-            with torch.profiler.record_function(_label):
-                return _real(*args, **kwargs)
-
-        setattr(owner, name, spanned)
-        patched.append((owner, name, real))
-    try:
-        yield
-    finally:
-        for owner, name, real in reversed(patched):
-            if isinstance(owner, types.ModuleType):
-                setattr(owner, name, real)
-            else:
-                delattr(owner, name)
-
-
-def step_spans(bench_step):
-    from cap2det_tpu_torch.kernels import pool_grad, roi_pool
-    from cap2det_tpu_torch.models import inception_v2
-
-    model = bench_step.model
-    return [
-        (model, "loss", "Cap2DetModel.loss"),
-        (model, "prepare", "Cap2DetModel.prepare (BN fold)"),
-        (inception_v2, "first_stage", "inception_v2.first_stage"),
-        (roi_pool, "roi_crop_maxpool", "K1 roi_crop_maxpool"),
-        (inception_v2, "second_stage", "inception_v2.second_stage"),
-        (roi_pool, "roi_crop_maxpool_grad", "K2 roi_crop_maxpool_grad"),
-        (pool_grad, "maxpool_grad", "K5 maxpool_grad"),
-        (pool_grad, "avgpool_grad", "K6 avgpool_grad"),
-        (bench_step.tx, "apply", "Optimizer.apply"),
-    ]
 
 
 def innermost_host_event(events, start, end):
@@ -181,7 +137,7 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     device = params_lib.resolve_device(args.device)
     cuda = device.type == "cuda"
@@ -196,12 +152,10 @@ def main(argv=None):
     untraced = benchlib.time_rounds(step.run, device, args.steps, 1,
                                     warmup=0)
     before = kernels.launch_counts()
-    with host_spans(step_spans(step)), profile(
-            activities=activities, record_shapes=args.convs) as prof:
+    with profile(activities=activities, record_shapes=args.convs) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            with record_function(STEP_SPAN):
-                step.run()
+            step.run()
         benchlib.synchronize(device)
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     after = kernels.launch_counts()

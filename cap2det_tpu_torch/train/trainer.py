@@ -45,6 +45,7 @@ from cap2det_tpu_torch.parallel import mesh as mesh_lib
 from cap2det_tpu_torch.train import checkpoint as ckpt_lib
 from cap2det_tpu_torch.train import metrics as metrics_lib
 from cap2det_tpu_torch.train import optimizers
+from cap2det_tpu_torch.utils.spans import span
 
 log = logging.getLogger("cap2det_torch.trainer")
 
@@ -120,6 +121,10 @@ def make_train_step(model, tx, train_config, trainable_mask=None,
         rank = mesh_lib.rank(process_group)
 
     def train_step(state, batch, seed):
+        with span("cap2det/step", state["step"]):
+            return _step(state, batch, seed)
+
+    def _step(state, batch, seed):
         params = state["params"]
         if trainable_mask is not None:
             set_trainable(params, trainable_mask)
@@ -128,12 +133,14 @@ def make_train_step(model, tx, train_config, trainable_mask=None,
                      if leaf.requires_grad]
         generator = torch.Generator(device=model.device)
         generator.manual_seed(step_seed(seed, state["step"], rank))
-        total, loss_dict = model.loss(params, batch, generator=generator,
-                                      is_training=True)
-        grads = torch.autograd.grad(total, [leaf for _, leaf in trainable],
-                                    allow_unused=True)
-        grads = [torch.zeros_like(leaf) if g is None else g
-                 for (_, leaf), g in zip(trainable, grads)]
+        with span("cap2det/step/forward"):
+            total, loss_dict = model.loss(params, batch, generator=generator,
+                                          is_training=True)
+        with span("cap2det/step/backward"):
+            grads = torch.autograd.grad(
+                total, [leaf for _, leaf in trainable], allow_unused=True)
+            grads = [torch.zeros_like(leaf) if g is None else g
+                     for (_, leaf), g in zip(trainable, grads)]
         total = total.detach()
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         if process_group is not None:
@@ -143,14 +150,15 @@ def make_train_step(model, tx, train_config, trainable_mask=None,
                 process_group)
             grads, total = reduced[:len(grads)], reduced[len(grads)]
             loss_dict = dict(zip(keys, reduced[len(grads) + 1:]))
-        opt_state = tx.apply(
-            params, {path: g for (path, _), g in zip(trainable, grads)},
-            state["opt_state"])
-
-        new_state = dict(state, opt_state=opt_state, step=state["step"] + 1)
-        if ema_decay is not None:
-            new_state["ema"] = optimizers.ema_update(state["ema"], params,
-                                                     ema_decay)
+        with span("cap2det/step/update"):
+            opt_state = tx.apply(
+                params, {path: g for (path, _), g in zip(trainable, grads)},
+                state["opt_state"])
+            new_state = dict(state, opt_state=opt_state,
+                             step=state["step"] + 1)
+            if ema_decay is not None:
+                new_state["ema"] = optimizers.ema_update(state["ema"], params,
+                                                         ema_decay)
         logs = {"loss/total_loss": total}
         logs.update({"loss/" + k: v for k, v in loss_dict.items()})
         return new_state, logs
@@ -286,7 +294,10 @@ def train(
         (reference warm-start semantics, models/utils.py:181-186).
       profile_steps: optional (start, stop) step pair; a torch.profiler
         trace of the steps between them goes to
-        <model_dir>/profile/trace.json.
+        <model_dir>/profile/trace.json. It carries the port's
+        ``cap2det/`` spans (``utils/spans.py``): each step, its forward,
+        backward and update, the model's layers, the kernel wrappers and
+        the wait for the next placed batch.
       device: "cuda" (the default; raises without a card) or "cpu". In a
         process group, the rank's device (``distributed.maybe_initialize``
         returns it).
@@ -365,7 +376,8 @@ def train(
     try:
         while step < max_steps:
             timing.update(wait=0.0, place=0.0)
-            batch = next(batches, None)
+            with span("cap2det/feed/wait"):
+                batch = next(batches, None)
             if batch is None:
                 break
             if profile_steps is not None and chief:

@@ -185,12 +185,12 @@ def _trace():
     """Two steps. Host: a step span 0-100 and 100-190, inside each a
     loss span and ops; device: kernels and a copy with known gaps."""
     return {"traceEvents": [
-        _x("bench_step", "user_annotation", 0, 100),
-        _x("Cap2DetModel.loss", "user_annotation", 5, 50),
+        _x("cap2det/step", "user_annotation", 0, 100),
+        _x("cap2det/step/forward", "user_annotation", 5, 50),
         _x("aten::conv2d", "cpu_op", 10, 20),
         _x("aten::item", "cpu_op", 60, 30),
-        _x("bench_step", "user_annotation", 100, 90),
-        _x("Optimizer.apply", "user_annotation", 110, 70),
+        _x("cap2det/step", "user_annotation", 100, 90),
+        _x("cap2det/step/update", "user_annotation", 110, 70),
         _x("cudaLaunchKernel", "cuda_runtime", 120, 2),
         # device: conv 12-30, copy 28-40 (overlaps), conv 70-80,
         # gemm 112-118, conv 150-160, and a flow event that is no span.
@@ -200,7 +200,7 @@ def _trace():
         _x("gemm", "kernel", 112, 6),
         _x("conv_kernel", "kernel", 150, 10),
         {"ph": "s", "name": "flow", "cat": "ac2g", "ts": 1, "id": 1},
-        _x("bench_step", "gpu_user_annotation", 12, 150),
+        _x("cap2det/step", "gpu_user_annotation", 12, 150),
     ]}
 
 
@@ -223,13 +223,13 @@ def test_aggregate_gives_the_stated_totals():
     # event open across each, and the one open where it ended.
     assert agg["gaps"] == [
         {"gap_ms": pytest.approx(0.032), "start_ms": pytest.approx(0.118),
-         "host_op": "Optimizer.apply", "host_category": "user_annotation",
-         "host_op_at_end": "Optimizer.apply"},
+         "host_op": "cap2det/step/update", "host_category": "user_annotation",
+         "host_op_at_end": "cap2det/step/update"},
         {"gap_ms": pytest.approx(0.032), "start_ms": pytest.approx(0.080),
          "host_op": None, "host_category": None,
-         "host_op_at_end": "Optimizer.apply"},
+         "host_op_at_end": "cap2det/step/update"},
         {"gap_ms": pytest.approx(0.030), "start_ms": pytest.approx(0.040),
-         "host_op": "bench_step", "host_category": "user_annotation",
+         "host_op": "cap2det/step", "host_category": "user_annotation",
          "host_op_at_end": "aten::item"}]
 
 
@@ -238,7 +238,7 @@ def test_aggregate_fails_on_a_cpu_trace(tmp_path):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(2):
-            with torch.profiler.record_function(profile_step.STEP_SPAN):
+            with torch.profiler.record_function("cap2det/step"):
                 x = torch.relu(x @ x)
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
@@ -248,14 +248,21 @@ def test_aggregate_fails_on_a_cpu_trace(tmp_path):
 
 
 def test_profile_step_on_the_cpu_fails_for_want_of_device_events(
-        monkeypatch):
+        monkeypatch, tmp_path):
     monkeypatch.setitem(bench.SHAPES, "tiny", dict(
         batch=1, canvas_hw=(64, 96), num_proposals=8, num_classes=3,
         full_freeze=True))
     monkeypatch.setattr(profile_step, "WARMUP_STEPS", 1)
     with pytest.raises(RuntimeError, match="no device events"):
         profile_step.main(["--device", "cpu", "--shape", "tiny",
-                           "--steps", "1"])
+                           "--steps", "2", "--trace_dir", str(tmp_path)])
+    # The kept trace holds the program's own spans, one set a step.
+    names = [e["name"] for e in benchlib.load_trace(
+        str(tmp_path / "trace.json")) if e.get("cat") == "user_annotation"]
+    for name in ("cap2det/step", "cap2det/step/forward",
+                 "cap2det/step/backward", "cap2det/step/update",
+                 "cap2det/model/bn_fold"):
+        assert names.count(name) == 2, name
 
 
 # -- benchlib, and the helpers moved out of chip_smoke.py ---------------------
