@@ -106,17 +106,21 @@ train_config {
 # Kernel launches of one step, by (full_freeze, second_stage_remat):
 # Mixed_4e trainable runs K2 and Mixed_5a's max-pool backward; the full
 # freeze runs neither. The fused optimizer updates every trainable leaf in
-# one launch. With the second stage recomputed, each block's recompute
-# launches its pool again, but the full freeze's Mixed_5a recompute stops
-# before its pool: no gradient flows into the ROIs, so nothing of the pool
-# branch is kept for the backward. A training step runs no NMS.
+# one launch; the BN fold of every convolution is one launch forward and
+# one backward in either regime. With the second stage recomputed, each
+# block's recompute launches its pool again, but the full freeze's
+# Mixed_5a recompute stops before its pool: no gradient flows into the
+# ROIs, so nothing of the pool branch is kept for the backward. A training
+# step runs no NMS.
 LAUNCHES = {
     (False, False): {"roi_crop_maxpool": 1, "pool_fwd": 3,
                      "roi_crop_maxpool_grad": 1, "maxpool_grad": 2,
-                     "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0},
+                     "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0,
+                     "bn_fold": 1, "bn_fold_grad": 1},
     (True, False): {"roi_crop_maxpool": 1, "pool_fwd": 3,
                     "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
-                    "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0},
+                    "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0,
+                    "bn_fold": 1, "bn_fold_grad": 1},
 }
 LAUNCHES[(False, True)] = dict(LAUNCHES[(False, False)], pool_fwd=6)
 LAUNCHES[(True, True)] = dict(LAUNCHES[(True, False)], pool_fwd=5)

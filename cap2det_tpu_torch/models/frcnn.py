@@ -42,9 +42,11 @@ def init_params_numpy(seed_or_rng, options: schema.FRCNN):
 
 
 def prepare(params, compute_dtype=torch.bfloat16):
-    """Both stages' params as ``inception_v2.prepare`` makes them."""
-    return {scope: inception_v2.prepare(params[scope], compute_dtype)
-            for scope in (FIRST_SCOPE, SECOND_SCOPE)}
+    """Both stages' params as ``inception_v2.prepare`` makes them, folded
+    together (one launch on the card)."""
+    scopes = (FIRST_SCOPE, SECOND_SCOPE)
+    return dict(zip(scopes, inception_v2.prepare_stages(
+        [params[scope] for scope in scopes], compute_dtype)))
 
 
 def dropout(x, keep_prob, generator):

@@ -15,12 +15,14 @@ copy) for cuDNN. What the port reproduces, and how:
   ``F.pad`` (zeros for convs, -inf for max-pools) where the two sides
   differ.
 - Frozen BN folded into the conv (eps 1e-3), then bias and ReLU. The
-  fold, the cast to the compute dtype and the separable 7x7 stem's
-  composition into one dense conv (cin = 3) happen in ``prepare``: once
-  per set of params for serving, and inside the loss on every training
-  step, where it is differentiable, so gradients reach ``weights`` and
-  ``beta`` (and land in their float32) while the moving statistics stay
-  frozen; frozen leaves (``requires_grad=False``) build no graph.
+  separable 7x7 stem's composition into one dense conv (cin = 3), then
+  the fold and the cast to the compute dtype of every conv at once
+  (``kernels/bn_fold``, one launch on the card), happen in ``prepare``:
+  once per set of params for serving, and inside the loss on every
+  training step, where the fold is differentiable, so gradients reach
+  ``weights`` and ``beta`` (and land in their float32) while the moving
+  statistics stay frozen; frozen leaves (``requires_grad=False``) build
+  no graph.
 - Avg-pool divides by the count of in-bounds taps.
 - Second-stage pools go through the SAME pool kernels at every N
   (``kernels/pool_grad.pool_same``: K4 forward, K5/K6 backward); the first
@@ -41,11 +43,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
-from cap2det_tpu_torch.kernels import pool_grad
+from cap2det_tpu_torch.kernels import bn_fold, pool_grad
 from cap2det_tpu_torch.params import truncated_normal
 from cap2det_tpu_torch.utils.spans import span
 
-BN_EPSILON = 0.001
+BN_EPSILON = bn_fold.BN_EPSILON
 
 # Inception block specs: per branch a list of (name, kernel, cout, stride);
 # pool branches are ('pool_avg'|'pool_max', kernel, None, stride).
@@ -211,18 +213,6 @@ def preprocess(images):
     return (2.0 / 255.0) * images - 1.0
 
 
-def _fold_bn(w, bn, compute_dtype):
-    """Frozen-statistics BN folded into an OIHW conv: {weight, bias} with
-    conv(x, weight) + bias == BN(conv(x, w)), cast to compute_dtype, the
-    weight in channels_last."""
-    inv = torch.rsqrt(bn["moving_variance"] + BN_EPSILON)
-    w = (w * inv[:, None, None, None]).to(compute_dtype)
-    return {
-        "weight": w.contiguous(memory_format=torch.channels_last),
-        "bias": (bn["beta"] - bn["moving_mean"] * inv).to(compute_dtype),
-    }
-
-
 def _compose_separable(params):
     """The separable stem conv as one dense OIHW conv (exact since the
     pointwise conv is 1x1): W[o,c,u,v] = sum_m dw[c,m,u,v] pw[o,c*mult+m]."""
@@ -234,24 +224,48 @@ def _compose_separable(params):
     return torch.einsum("cmuv,ocm->ocuv", dw, pw.reshape(-1, cin, mult))
 
 
-def prepare(params, compute_dtype=torch.bfloat16):
-    """A stage's params tree -> the tree ``first_stage``/``second_stage``
-    read: every conv's frozen BN folded into its weights and bias in
-    compute_dtype (the separable stem composed into one dense conv first).
-    Serving makes it once per set of params, so a forward pass launches no
-    weight arithmetic; training makes it inside the loss, where autograd
-    carries the gradients back through the fold and the cast."""
+def _gather(params, slots):
+    """`params`' tree as ``prepare`` returns it, each convolution's entry
+    left empty, and (its dict, its key, its OIHW weights, its BatchNorm)
+    appended to `slots` in order (the separable stem composed first)."""
     out = {}
     for key, value in params.items():
         if "depthwise_weights" in value:
-            out[key] = _fold_bn(_compose_separable(value),
-                                value["BatchNorm"], compute_dtype)
+            out[key] = None
+            slots.append((out, key, _compose_separable(value),
+                          value["BatchNorm"]))
         elif "weights" in value:
-            out[key] = _fold_bn(value["weights"], value["BatchNorm"],
-                                compute_dtype)
+            out[key] = None
+            slots.append((out, key, value["weights"], value["BatchNorm"]))
         else:
-            out[key] = prepare(value, compute_dtype)
+            out[key] = _gather(value, slots)
     return out
+
+
+def prepare_stages(stages, compute_dtype=torch.bfloat16):
+    """Several stages' params trees -> the trees ``first_stage`` and
+    ``second_stage`` read: every convolution's frozen BN folded into its
+    weights and bias in compute_dtype, the weights channels-last (the
+    separable stem composed into one dense conv first), all in one
+    ``kernels/bn_fold.fold`` call: one launch on the card. Serving makes
+    them once per set of params, so a forward pass launches no weight
+    arithmetic; training makes them inside the loss, where the fold is
+    differentiable in ``weights`` and ``beta`` (one more launch in the
+    backward) and frozen leaves build no graph."""
+    slots = []
+    trees = [_gather(params, slots) for params in stages]
+    folded = bn_fold.fold(
+        [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
+         for _, _, w, bn in slots], compute_dtype)
+    for (out, key, _, _), (weight, bias) in zip(slots, folded):
+        out[key] = {"weight": weight, "bias": bias}
+    return trees
+
+
+def prepare(params, compute_dtype=torch.bfloat16):
+    """A stage's params tree -> the tree ``first_stage``/``second_stage``
+    read (``prepare_stages`` of the one stage)."""
+    return prepare_stages([params], compute_dtype)[0]
 
 
 def _conv_relu(conv, x, stride):

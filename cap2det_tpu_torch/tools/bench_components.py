@@ -42,6 +42,16 @@ COMPONENTS = ("train_step", "first_stage", "first_stage_fwdbwd_4e",
               "features", "heads", "heads_parts")
 
 
+def _trains(path):
+    """Whether the step trains a leaf: never a BN's moving statistics
+    (``Cap2DetModel.non_trainable_substrings``), which the fold takes as
+    frozen."""
+    from cap2det_tpu_torch.models import cap2det
+
+    return not any(s in "/" + path for s in
+                   cap2det.Cap2DetModel.non_trainable_substrings)
+
+
 def _detached(tree, trainable):
     """(a copy of the nested dict `tree` whose leaves are detached,
     requiring grad where trainable(path), the list of those leaves). The
@@ -144,7 +154,8 @@ def main(argv=None):
     if enabled("first_stage_fwdbwd_4e"):
         def first_4e():
             tree, leaves = _detached(params[frcnn.FIRST_SCOPE],
-                                     lambda path: "/Mixed_4e/" in path)
+                                     lambda path: "/Mixed_4e/" in path
+                                     and _trains(path))
             out = inception_v2.first_stage(
                 inception_v2.prepare(tree, step.compute_dtype),
                 inception_v2.preprocess(image.float()))
@@ -185,8 +196,7 @@ def main(argv=None):
         record("second_stage_fwd", second)
 
         def second_fwdbwd():
-            tree, leaves = _detached(params[frcnn.SECOND_SCOPE],
-                                     lambda path: True)
+            tree, leaves = _detached(params[frcnn.SECOND_SCOPE], _trains)
             out = inception_v2.second_stage(
                 inception_v2.prepare(tree, step.compute_dtype), rois)
             return torch.autograd.grad(out.float().sum(), leaves)

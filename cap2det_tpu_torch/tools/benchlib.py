@@ -206,8 +206,10 @@ def busy_share(trace):
 
 def _kernel_flop_counts():
     """(name, module, attribute, flops of one call from its bound
-    arguments) of the kernel wrappers."""
-    from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
+    arguments, or {kernel: flops} where the call also fixes its
+    backward's) of the kernel wrappers."""
+    from cap2det_tpu_torch.kernels import (bn_fold, fused_optimizer,
+                                           pool_grad, roi_pool)
 
     def k1(features, boxes, crop_size, pool_kernel, pool_stride, **_):
         return roi_pool.forward_flops(boxes.shape[0], boxes.shape[1],
@@ -218,6 +220,16 @@ def _kernel_flop_counts():
         return roi_pool.backward_flops(boxes.shape[0], boxes.shape[1],
                                        features.shape[-1], crop_size,
                                        pool_kernel, pool_stride)
+
+    def fold(convs, dtype):
+        # The call fixes its backward's work too (on the CPU no separate
+        # call runs it).
+        counts = {"bn_fold": sum(bn_fold.fold_flops(w.numel(), w.shape[0])
+                                 for w, *_ in convs)}
+        trains = sum(w.numel() for w, *_ in convs if w.requires_grad)
+        if trains and torch.is_grad_enabled():
+            counts["bn_fold_grad"] = bn_fold.fold_grad_flops(trains)
+        return counts
 
     return [
         ("roi_crop_maxpool", roi_pool, "roi_crop_maxpool", k1),
@@ -234,6 +246,7 @@ def _kernel_flop_counts():
         ("fused_optimizer", fused_optimizer, "fused_update",
          lambda rule, leaf_set, clip_norm, **_: fused_optimizer.update_flops(
              rule, leaf_set, clip_norm is not None)),
+        ("bn_fold", bn_fold, "fold", fold),
     ]
 
 
@@ -258,7 +271,10 @@ def step_flops(fn, *args, **kwargs):
         def counted(*a, **kw):
             bound = signature.bind(*a, **kw)
             bound.apply_defaults()
-            kernels[name] = kernels.get(name, 0) + count(**bound.arguments)
+            flops = count(**bound.arguments)
+            for key, n in (flops.items() if isinstance(flops, dict)
+                           else [(name, flops)]):
+                kernels[key] = kernels.get(key, 0) + n
             with FlopCounterMode(display=False) as plain:
                 out = real(*a, **kw)
             inside[0] += plain.get_total_flops()

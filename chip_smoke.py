@@ -67,6 +67,16 @@ Phases (any failure ends the run with a nonzero exit code):
      the shipped update (Adagrad) timed from a CUDA graph and from the
      host beside its byte bound, the plain flat version and the per-leaf
      chain;
+  6b. bn_fold: hold the BN fold kernels (csrc/bn_fold.cu: one launch
+     folds every convolution of both stages into its bf16 or float32
+     weight and bias, one more gives the trainable leaves' gradients)
+     against the per-convolution chain (bn_fold.fold_reference and
+     autograd through it) at the trees and trainable sets of
+     coco17_extend_match and voc07_inc2 with seeded BN statistics, bit
+     for bit with the same strides, one launch each; two steps of each
+     regime with the kernels against the chain under deterministic
+     cuDNN, bit for bit; the fold and its backward timed from a CUDA graph
+     and from the host beside the byte bound and the chain;
   7. train at configs/coco17_extend_match.pbtxt width (batch 2, 1024x1536
      canvases, P=500, 80 classes, Mixed_4e unfrozen, Adagrad): 3 warm-up
      and 12 timed steps, launch counts per step, finite losses, frozen
@@ -115,8 +125,8 @@ Phases (any failure ends the run with a nonzero exit code):
      iterations, bf16) over 8 PNG records and two checkpoints of seeded
      TrainStates: one eval_metrics.jsonl row per checkpoint, oldest first,
      the CSV and HTML reports, promotion of the better final-iteration
-     mAP, launches K1 64, K4 192 and NMS 64 (K1 staged) and no backward
-     kernel,
+     mAP, launches K1 64, K4 192, NMS 64 (K1 staged) and the BN fold 2 (one
+     a checkpoint) and no backward kernel,
      the second checkpoint's detections not the first's; seconds per
      checkpoint and per image, the NMS share, peak memory; one image's
      postprocess on the CPU equals the card's bit for bit; then
@@ -203,6 +213,10 @@ Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
 time and busy share with torch.profiler, and the training step's busy
 share from a trace of train_loop's steps.
 
+The kernels line's bn_fold and bn_fold_grad rows give coco17's fold and
+its backward replayed from a CUDA graph as "ms", the training step's
+launches of each.
+
 The kernels line's fused_optimizer row gives the kernel's time replayed
 from a CUDA graph as "ms" (launched from the host, the wrapper's Python
 checks of 62 leaves take longer than the kernel; both are printed). Its
@@ -279,7 +293,8 @@ VOC_POOL_SHAPES = [(name + " N=2000", kind, k, s, (2000,) + shape[1:])
 # index_add_ there.
 GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 1e-4)}
 KERNELS = ("roi_crop_maxpool", "pool_fwd", "roi_crop_maxpool_grad",
-           "maxpool_grad", "avgpool_grad", "fused_optimizer", "nms")
+           "maxpool_grad", "avgpool_grad", "fused_optimizer", "nms",
+           "bn_fold", "bn_fold_grad")
 # train() steps of the train_loop phase: enough for its seeded stream to
 # reach all eight coco17 canvas buckets.
 TRAIN_LOOP_STEPS = 40
@@ -314,10 +329,11 @@ POOL_GRAD_PATHS = ("maxpool_grad_tiled_launches",
 
 
 def reset_launch_counts():
-    from cap2det_tpu_torch.kernels import (fused_optimizer, nms, pool_grad,
-                                           roi_pool)
+    from cap2det_tpu_torch.kernels import (bn_fold, fused_optimizer, nms,
+                                           pool_grad, roi_pool)
 
     fused_optimizer.launches = nms.launches = 0
+    bn_fold.launches = bn_fold.grad_launches = 0
     roi_pool.launches = roi_pool.grad_launches = 0
     roi_pool.staged_launches = roi_pool.generic_launches = 0
     roi_pool.grad_staged_launches = roi_pool.grad_generic_launches = 0
@@ -1467,6 +1483,234 @@ def phase_fused_optimizer(torch):
     return dict(rows["coco17"], max_abs_err=max_err)
 
 
+BN_FOLD_SETS = [  # (tag, config, convolutions, weights, trainable ones)
+    ("coco17", "coco17_extend_match.pbtxt", 69, 10150080, 6999040),
+    ("inc2", "voc07_inc2.pbtxt", 69, 10150080, 5893120),
+]
+BN_FOLD_STEP_HW = (256, 384)  # the step held bit for bit, plain against kernel
+
+
+def bn_fold_inputs(torch, config):
+    """A config's model with seeded weights and BN statistics drawn away
+    from the init's (so every inv, bias and product is a real one):
+    (the convolutions as ``bn_fold.fold`` takes them, their trainable
+    leaves as the optimizer's mask sets them)."""
+    from cap2det_tpu_torch.config import schema
+    from cap2det_tpu_torch.models import frcnn, inception_v2, registry
+    from cap2det_tpu_torch.train import optimizers, trainer
+    import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
+
+    cfg = schema.load_pipeline(os.path.join("configs", config))
+    model = registry.build(cfg.model, is_training=True,
+                           compute_dtype=torch.bfloat16)
+    params = model.init_params(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    with torch.no_grad():
+        for path, leaf in optimizers.flatten_params(params):
+            if path.endswith("moving_variance"):
+                leaf.copy_(torch.rand(leaf.shape, generator=gen,
+                                      device="cuda") * 2 + 0.01)
+            elif path.endswith(("moving_mean", "BatchNorm/beta")):
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device="cuda"))
+    _, mask, _ = optimizers.build_optimizer(
+        cfg.train_config, params, model.non_trainable_paths,
+        getattr(model, "non_trainable_substrings", ()))
+    trainer.set_trainable(params, mask)
+    slots = []
+    for scope in (frcnn.FIRST_SCOPE, frcnn.SECOND_SCOPE):
+        inception_v2._gather(params[scope], slots)
+    convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
+             for _, _, w, bn in slots]
+    leaves = [t for c in convs for t in c[:2] if t.requires_grad]
+    return convs, leaves
+
+
+def bn_fold_upstream(torch, outputs, gen):
+    """Seeded gradients of the fold's differentiable outputs, each weight's
+    in the layout cuDNN returns (channels-last beyond 1x1)."""
+    grads = []
+    for t in outputs:
+        g = torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+        if t.dim() == 4 and t.shape[-1] > 1:
+            g = g.contiguous(memory_format=torch.channels_last)
+        grads.append(g)
+    return grads
+
+
+def fold_plain(convs, dtype):
+    """bn_fold.fold's plain version: the per-convolution chain."""
+    from cap2det_tpu_torch.kernels import bn_fold
+
+    return [bn_fold.fold_reference(*c, dtype) for c in convs]
+
+
+def phase_bn_fold(torch):
+    """The BN fold kernels (csrc/bn_fold.cu: one launch folds every
+    convolution of both stages, one more gives the trainable leaves'
+    gradients) against their plain version (the per-convolution chain,
+    bn_fold.fold_reference, and autograd through it) on the card, at the
+    trees and trainable sets of coco17_extend_match and voc07_inc2, with
+    seeded BN statistics: outputs in bfloat16 and float32 bit for bit
+    with the same strides, gradients bit for bit from seeded upstream
+    gradients (channels-last where cuDNN gives them so), one launch each;
+    then two training steps of each regime (bench.BenchStep at
+    BN_FOLD_STEP_HW, bf16, dropout on) with the fold's kernels against
+    the plain chain under deterministic cuDNN: losses and params bit for
+    bit. Timed: the fold and its backward replayed from a CUDA graph and
+    launched from the host, the plain chain forward and backward, beside
+    the byte bound. Returns the kernels line's two rows (coco17's)."""
+    from cap2det_tpu_torch import bench
+    from cap2det_tpu_torch.kernels import bn_fold
+    from cap2det_tpu_torch.train import optimizers
+
+    rows = {}
+    max_err = 0.0
+    for tag, config, want_convs, want_weights, want_trainable in BN_FOLD_SETS:
+        convs, leaves = bn_fold_inputs(torch, config)
+        weights = sum(c[0].numel() for c in convs)
+        trainable = sum(c[0].numel() for c in convs if c[0].requires_grad)
+        if (len(convs), weights, trainable) != (want_convs, want_weights,
+                                                want_trainable):
+            raise AssertionError("bn_fold: %s has %d convolutions, %d "
+                                 "weights, %d trainable; expected %d, %d, "
+                                 "%d" % (tag, len(convs), weights, trainable,
+                                         want_convs, want_weights,
+                                         want_trainable))
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+            runs = []
+            for fn in (bn_fold.fold, fold_plain):
+                before = (bn_fold.launches, bn_fold.grad_launches)
+                outs = [t for pair in fn(convs, dtype) for t in pair]
+                diff = [t for t in outs if t.requires_grad]
+                gen.manual_seed(SEED + 22)
+                grads = torch.autograd.grad(
+                    diff, leaves, bn_fold_upstream(torch, diff, gen))
+                torch.cuda.synchronize()
+                runs.append((outs, grads, (
+                    bn_fold.launches - before[0],
+                    bn_fold.grad_launches - before[1])))
+            (got, got_g, launched), (want, want_g, _) = runs
+            if launched != (1, 1):
+                raise AssertionError("bn_fold: %s: launches %s, expected "
+                                     "one fold and one backward"
+                                     % (tag, launched))
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if a.stride() != b.stride() or not torch.equal(a, b)]
+            bad_g = [i for i, (a, b) in enumerate(zip(got_g, want_g))
+                     if not torch.equal(a, b)]
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got + list(got_g), want + list(want_g)))
+            max_err = max(max_err, err)
+            log(json.dumps({"kernel": "bn_fold", "set": tag,
+                            "dtype": str(dtype), "outputs": len(got),
+                            "gradients": len(got_g),
+                            "outputs_not_equal": len(bad),
+                            "gradients_not_equal": len(bad_g),
+                            "max_abs_err": err}))
+            if bad or bad_g:
+                raise AssertionError("bn_fold: %s %s: outputs %s, gradients "
+                                     "%s differ from the plain version"
+                                     % (tag, dtype, bad[:8], bad_g[:8]))
+
+        # Timed in bf16: the fold alone (as update_params runs it), its
+        # backward alone, and the plain chain's forward and backward.
+        with torch.no_grad():
+            def kernel():
+                bn_fold.fold(convs, torch.bfloat16)
+
+            def plain():
+                fold_plain(convs, torch.bfloat16)
+
+            kernel_ms = device_ms(kernel, iters=20)
+            host_ms = cuda_ms(kernel, iters=50)
+            plain_ms = cuda_ms(plain, iters=20)
+        tensors = [t for c in convs for t in c]
+        needs = [t.requires_grad for t in tensors]
+        plan = bn_fold.plan(tensors[0::4], needs[0::4], needs[1::4])
+        out, inv = bn_fold._fold(plan, tensors, torch.bfloat16, True)
+        outs = plan.outputs(out)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+        ups = bn_fold_upstream(torch, outs, gen)
+        g_w, g_b = ups[0::2], ups[1::2]
+
+        def grad_kernel():
+            bn_fold._fold_grad(plan, g_w, g_b, inv, torch.bfloat16)
+
+        at = [int(row["inv"]) for row in plan.table]
+
+        def grad_plain():
+            for i in range(len(convs)):
+                if plan.grad_w[i] or plan.grad_b[i]:
+                    bn_fold.fold_grad_reference(
+                        g_w[i] if plan.grad_w[i] else None,
+                        g_b[i] if plan.grad_b[i] else None,
+                        inv[at[i]:at[i] + len(g_b[i])])
+
+        grad_ms = device_ms(grad_kernel, iters=20)
+        grad_host_ms = cuda_ms(grad_kernel, iters=50)
+        grad_plain_ms = cuda_ms(grad_plain, iters=20)
+        nbytes = bn_fold.fold_bytes(weights)
+        grad_bytes = bn_fold.fold_grad_bytes(trainable)
+        b_ms, b_by = bound_ms(nbytes, 3 * weights)
+        gb_ms, gb_by = bound_ms(grad_bytes, trainable)
+        rows[tag] = (
+            {"kernel": "bn_fold", "set": tag, "kernel_ms": kernel_ms,
+             "host_launched_ms": host_ms, "plain_ms": plain_ms,
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "bytes": nbytes, "kernel_over_bound": kernel_ms / b_ms},
+            {"kernel": "bn_fold_grad", "set": tag, "kernel_ms": grad_ms,
+             "host_launched_ms": grad_host_ms, "plain_ms": grad_plain_ms,
+             "library_ms": None, "bound_ms": gb_ms, "bound_by": gb_by,
+             "bytes": grad_bytes, "kernel_over_bound": grad_ms / gb_ms})
+        for row in rows[tag]:
+            log(json.dumps(row))
+        del convs, leaves, tensors, out, inv, outs, ups, g_w, g_b
+        torch.cuda.empty_cache()
+
+    # Whole steps, the fold's kernels against the plain chain.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    real_fold = bn_fold.fold
+    try:
+        for full_freeze in (False, True):
+            shape = dict(bench.SHAPES["inc2" if full_freeze else "bench"],
+                         canvas_hw=BN_FOLD_STEP_HW)
+            runs = []
+            for fn in (real_fold, fold_plain):
+                bn_fold.fold = fn
+                step = bench.BenchStep(shape, "cuda")
+                losses = [step.run()["loss/total_loss"] for _ in range(2)]
+                runs.append((losses, optimizers.flatten_params(
+                    step.state["params"])))
+                del step
+            bn_fold.fold = real_fold
+            (losses, params), (plain_losses, plain) = runs
+            bad = [p for (p, a), (_, b) in zip(params, plain)
+                   if not torch.equal(a, b)]
+            same = all(map(torch.equal, losses, plain_losses))
+            log("bn_fold: %s step x2 at %dx%d, kernels against the plain "
+                "chain under deterministic cuDNN: losses %s / %s, %d of %d "
+                "leaves differ" % (
+                    "inc2" if full_freeze else "bench", *BN_FOLD_STEP_HW,
+                    [float(l) for l in losses],
+                    [float(l) for l in plain_losses], len(bad), len(params)))
+            if bad or not same:
+                raise AssertionError("bn_fold: the step with the kernels "
+                                     "differs from the plain chain's: %s"
+                                     % bad[:8])
+            torch.cuda.empty_cache()
+    finally:
+        bn_fold.fold = real_fold
+        torch.use_deterministic_algorithms(was_deterministic)
+        torch.backends.cudnn.deterministic = False
+    fwd, grad = rows["coco17"]
+    return dict(fwd, max_abs_err=max_err), dict(grad, max_abs_err=max_err)
+
+
 def train_batch(rng, batch, hw, num_p, num_classes, pad):
     """A seeded host training batch: uint8 canvases, proposals inside the
     image (the second image's last `pad` slots are zero padding), and
@@ -2121,7 +2365,7 @@ def write_train_records(directory, num_examples, image_hw, seed):
 
 PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3, "roi_crop_maxpool_grad": 1,
             "maxpool_grad": 2, "avgpool_grad": 1, "fused_optimizer": 1,
-            "nms": 0}
+            "nms": 0, "bn_fold": 1, "bn_fold_grad": 1}
 
 
 def run_train(torch, trainer, cfg, model_dir, steps, profile_steps=None,
@@ -2529,7 +2773,7 @@ def phase_eval_daemon(torch):
         per_run = EVAL_RECORDS * len(EVAL_STEPS)
         want.update(roi_crop_maxpool=num_scales * per_run,
                     pool_fwd=3 * num_scales * per_run,
-                    nms=iterations * per_run)
+                    nms=iterations * per_run, bn_fold=len(EVAL_STEPS))
         if launches != want:
             raise AssertionError("eval_daemon: launches %s, expected %s"
                                  % (launches, want))
@@ -4134,7 +4378,8 @@ GONE_SECS = 30.0
 # no K2, and K5 only for Mixed_5c.
 FROZEN_PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 3,
                    "roi_crop_maxpool_grad": 0, "maxpool_grad": 1,
-                   "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0}
+                   "avgpool_grad": 1, "fused_optimizer": 1, "nms": 0,
+                   "bn_fold": 1, "bn_fold_grad": 1}
 
 
 def logged_launches(text, where):
@@ -4315,6 +4560,8 @@ def main(argv):
     torch.cuda.empty_cache()
     fused = phase_fused_optimizer(torch)
     torch.cuda.empty_cache()
+    fold, fold_grad = phase_bn_fold(torch)
+    torch.cuda.empty_cache()
     coco = phase_train(
         torch, "coco17_extend_match.pbtxt", batch_size=2, num_p=TRAIN_P,
         warmup=3, timed=12, breakdown=True,
@@ -4381,6 +4628,11 @@ def main(argv):
         # No Pallas kernel: the greedy pass's lax.fori_loop, which XLA
         # compiles into the TPU's postprocess program.
         ("nms", "nms.cu", "ops/nms.py:23", nms),
+        # No Pallas kernel: the BN fold's arithmetic, which XLA fuses into
+        # the TPU's step program.
+        ("bn_fold", "bn_fold.cu", "models/inception_v2.py:265", fold),
+        ("bn_fold_grad", "bn_fold.cu", "models/inception_v2.py:265",
+         fold_grad),
     ]
     # Each kernel's launches on its path: training's for the six, serving's
     # (the serve phase's three images) for NMS.

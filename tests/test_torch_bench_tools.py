@@ -82,6 +82,24 @@ def test_bench_components_prints_the_jax_names(monkeypatch):
     assert all(line["device"].startswith("cpu") for line in lines)
 
 
+def test_bench_components_runs_the_folds_card_path(monkeypatch):
+    """The components that differentiate a stage fold it as the card
+    does (``bn_fold``'s launches walked on the CPU): only what the step
+    trains requires a gradient, never a moving statistic."""
+    from tests.test_torch_bn_fold import walk_the_kernels
+
+    walk_the_kernels(monkeypatch)
+    monkeypatch.setattr(bench_components, "CANVAS_HW", (64, 96))
+    monkeypatch.setattr(bench_components, "ROUNDS", 1)
+    lines = _lines(bench_components.main, [
+        "--device", "cpu", "--steps", "1", "--proposals", "16",
+        "--classes", "3", "--components",
+        "first_stage_fwdbwd_4e,second_stage"])
+    got = [line["component"] for line in lines if "component" in line]
+    assert got == ["first_stage_fwdbwd_4e", "second_stage_fwd",
+                   "second_stage_fwdbwd"]
+
+
 def test_bench_backbone_parts_prints_the_jax_names(monkeypatch):
     jax_source = _jax_source("bench_backbone_parts.py")
     jax_convs = [tuple(int(v) for v in m) for m in re.findall(

@@ -16,9 +16,9 @@ from cap2det_tpu_torch import bench
 from cap2det_tpu_torch.config import schema
 from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.eval import evaluator
-from cap2det_tpu_torch.kernels import (build, fused_optimizer, nms,
+from cap2det_tpu_torch.kernels import (bn_fold, build, fused_optimizer, nms,
                                        pool_grad, roi_pool)
-from cap2det_tpu_torch.models import frcnn, registry
+from cap2det_tpu_torch.models import frcnn, inception_v2, registry
 from cap2det_tpu_torch.ops import nms as nms_ops
 from cap2det_tpu_torch.ops import roi as roi_ops
 from cap2det_tpu_torch.train import optimizers, trainer
@@ -419,15 +419,17 @@ def test_train_step_launch_counts(cuda, tmp_path, unfreeze, want_k2,
     })
     counts = (roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
               pool_grad.maxpool_grad_launches,
-              pool_grad.avgpool_grad_launches, fused_optimizer.launches)
+              pool_grad.avgpool_grad_launches, fused_optimizer.launches,
+              bn_fold.launches, bn_fold.grad_launches)
     state, logs = step(state, batch, 0)
     torch.cuda.synchronize()
     delta = tuple(b - a for a, b in zip(counts, (
         roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
         pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches,
-        fused_optimizer.launches)))
-    # The fused optimizer updates every trainable leaf in one launch.
-    assert delta == (1, 3, want_k2, want_k5, 1, 1)
+        fused_optimizer.launches, bn_fold.launches, bn_fold.grad_launches)))
+    # The fused optimizer updates every trainable leaf in one launch; the
+    # BN fold is one launch forward and one backward.
+    assert delta == (1, 3, want_k2, want_k5, 1, 1, 1, 1)
     assert torch.isfinite(logs["loss/total_loss"])
     assert state["step"] == 1
 
@@ -586,20 +588,22 @@ def test_update_params_prepares_again_on_the_card(cuda, tmp_path):
 
 def test_run_evaluation_launch_counts(cuda, tmp_path):
     """Per image: K1 once and K4 three times per scale, NMS once per OICR
-    iteration (three); no backward kernel."""
+    iteration (three); no backward kernel; one BN fold for the set of
+    params."""
     cfg = _eval_setup(tmp_path)
     model = registry.build(cfg.model)
     counts = (roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
               pool_grad.maxpool_grad_launches,
-              pool_grad.avgpool_grad_launches, nms.launches)
+              pool_grad.avgpool_grad_launches, nms.launches,
+              bn_fold.launches, bn_fold.grad_launches)
     metrics, maps = evaluator.run_evaluation(cfg, model.init_params(0),
                                              model=model)
     torch.cuda.synchronize()
     delta = tuple(b - a for a, b in zip(counts, (
         roi_pool.launches, pool_grad.launches, roi_pool.grad_launches,
         pool_grad.maxpool_grad_launches, pool_grad.avgpool_grad_launches,
-        nms.launches)))
-    assert delta == (2 * 3, 3 * 2 * 3, 0, 0, 0, 3 * 3)
+        nms.launches, bn_fold.launches, bn_fold.grad_launches)))
+    assert delta == (2 * 3, 3 * 2 * 3, 0, 0, 0, 3 * 3, 1, 0)
     assert metrics["num_examples"] == 3 and len(maps) == 3
 
 
@@ -1013,3 +1017,140 @@ def test_nms_refuses_a_p_beyond_shared_memory(cuda):
         nms.nms_mask(torch.zeros(1, num_p, 4, device=cuda),
                      torch.zeros(1, num_p, 1, device=cuda), 1e-5, 0.3, 100)
     assert nms.launches == before
+
+
+# -- the BN fold ------------------------------------------------------------
+
+
+def _fold_leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _fold_leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def _fold_convs(cuda, regime):
+    """Both stages' convolutions as ``bn_fold.fold`` takes them, with
+    seeded weights and BN statistics on the card, and the leaves that
+    require gradients: the weights and betas of coco17_extend_match's
+    Mixed_4e and second stage, of voc07_inc2's second stage, or none."""
+    from cap2det_tpu_torch import params as params_lib
+
+    rng = np.random.default_rng(8)
+    tree = {frcnn.FIRST_SCOPE: inception_v2.init_first_stage_params_numpy(rng),
+            frcnn.SECOND_SCOPE:
+                inception_v2.init_second_stage_params_numpy(rng)}
+    for path, leaf in _fold_leaves(tree):
+        if path[-1] == "moving_variance":
+            leaf[...] = rng.uniform(0.01, 2.0, leaf.shape)
+        elif path[-1] in ("moving_mean", "beta"):
+            leaf[...] = rng.normal(0.0, 1.0, leaf.shape)
+    params = params_lib.from_jax_numpy(tree, cuda)
+    for path, leaf in _fold_leaves(params):
+        scope_trains = {"coco17": path[0] == frcnn.SECOND_SCOPE
+                        or "Mixed_4e" in path,
+                        "voc07": path[0] == frcnn.SECOND_SCOPE,
+                        "none": False}[regime]
+        leaf.requires_grad_(scope_trains and path[-1] in ("weights", "beta"))
+    slots = []
+    for scope in (frcnn.FIRST_SCOPE, frcnn.SECOND_SCOPE):
+        inception_v2._gather(params[scope], slots)
+    convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
+             for _, _, w, bn in slots]
+    return convs, [t for c in convs for t in c[:2] if t.requires_grad]
+
+
+def _fold_plain(convs, dtype):
+    return [bn_fold.fold_reference(*c, dtype) for c in convs]
+
+
+@pytest.mark.parametrize("regime", ["coco17", "voc07", "none"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_bn_fold_kernels_match_plain(cuda, dtype, regime):
+    """The fold of both stages in one launch against the per-convolution
+    chain on the card: outputs bit for bit with the same strides, and the
+    trainable leaves' gradients bit for bit from the same upstream
+    gradients (channels-last beyond 1x1, as cuDNN gives them), in one
+    more launch."""
+    convs, leaves = _fold_convs(cuda, regime)
+    assert len(convs) == 69
+    assert len(leaves) == {"coco17": 52, "voc07": 38, "none": 0}[regime]
+    runs = []
+    for fn in (bn_fold.fold, _fold_plain):
+        before = (bn_fold.launches, bn_fold.grad_launches)
+        outs = [t for pair in fn(convs, dtype) for t in pair]
+        diff = [t for t in outs if t.requires_grad]
+        grads = ()
+        if leaves:
+            gen = torch.Generator(device=cuda).manual_seed(9)
+            upstream = []
+            for t in diff:
+                g = torch.randn(t.shape, generator=gen, device=cuda).to(dtype)
+                if t.dim() == 4 and t.shape[-1] > 1:
+                    g = g.contiguous(memory_format=torch.channels_last)
+                upstream.append(g)
+            grads = torch.autograd.grad(diff, leaves, upstream)
+        torch.cuda.synchronize()
+        runs.append((outs, len(diff), grads,
+                     (bn_fold.launches - before[0],
+                      bn_fold.grad_launches - before[1])))
+    (got, got_diff, got_g, launched), (want, want_diff, want_g, _) = runs
+    assert launched == (1, int(bool(leaves)))
+    assert got_diff == want_diff == len(leaves)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == dtype, i
+        assert a.shape == b.shape and a.stride() == b.stride(), i
+        assert torch.equal(a, b), i
+    for i, (a, b) in enumerate(zip(got_g, want_g)):
+        assert a.shape == b.shape and torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("full_freeze", [False, True],
+                         ids=["mixed4e_unfrozen", "full_freeze"])
+def test_bn_fold_step_matches_the_chain(cuda, monkeypatch, full_freeze):
+    """Two bench steps at a small shape (bf16, dropout on) with the fold's
+    kernels against the per-convolution chain: the same losses and params
+    bit for bit under deterministic algorithms."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    shape = dict(batch=2, canvas_hw=(64, 96), num_proposals=16,
+                 num_classes=3, full_freeze=full_freeze)
+    runs = []
+    try:
+        for fn in (bn_fold.fold, _fold_plain):
+            monkeypatch.setattr(bn_fold, "fold", fn)
+            step = bench.BenchStep(shape, cuda)
+            losses = [step.run()["loss/total_loss"] for _ in range(2)]
+            runs.append((losses, optimizers.flatten_params(
+                step.state["params"])))
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    (losses, params), (plain_losses, plain) = runs
+    assert all(map(torch.equal, losses, plain_losses))
+    assert [p for p, _ in params] == [p for p, _ in plain]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(params, plain))
+
+
+def test_bn_fold_raises_on_what_the_kernels_do_not_take(cuda):
+    w = torch.randn(8, 4, 3, 3, device=cuda)
+    beta, mean = torch.randn(8, device=cuda), torch.randn(8, device=cuda)
+    var = torch.rand(8, device=cuda) + 0.5
+    with pytest.raises(TypeError, match="dtype"):
+        bn_fold.fold([(w, beta, mean, var)], torch.float16)
+    with pytest.raises(ValueError, match="taps packed"):
+        bn_fold.fold([(w.transpose(2, 3), beta, mean, var)])
+    with pytest.raises(ValueError, match="float32"):
+        bn_fold.fold([(w, beta.cpu(), mean, var)])
+    with pytest.raises(ValueError, match="BN vector"):
+        bn_fold.fold([(w, beta[:4], mean, var)])
+    with pytest.raises(ValueError, match="moving statistics"):
+        bn_fold.fold([(w.requires_grad_(), beta, mean,
+                       var.requires_grad_())])
+    weight, bias = bn_fold.fold([(w, beta, mean, var.detach())])[0]
+    with pytest.raises(ValueError, match="neither contiguous"):
+        torch.autograd.grad(weight, [w], torch.ones(
+            8, 3, 3, 4, dtype=weight.dtype, device=cuda).permute(0, 3, 2, 1))

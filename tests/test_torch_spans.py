@@ -5,7 +5,9 @@ sizes.
 * With no profiler recording, a training step and a ``predict`` enter no
   ``record_function``.
 * Under ``torch.profiler`` every span of the step, of ``predict`` and of
-  ``train()``'s feed appears, each inside its parent's interval.
+  ``train()``'s feed appears, each inside its parent's interval; the
+  fold's kernel spans too on the card's path (its launches walked on the
+  CPU), each named as a launch counter.
 * The step's losses and params, and ``predict``'s outputs, are the same
   bits with the profiler on and off.
 * Each reader of ``benchmark/metrics/`` that reads these spans gives the
@@ -42,6 +44,7 @@ STEP_PARENTS = {
     "cap2det/step/backward": "cap2det/step",
     "cap2det/step/update": "cap2det/step",
     "cap2det/model/bn_fold": "cap2det/step/forward",
+    "cap2det/kernel/bn_fold": "cap2det/model/bn_fold",
     "cap2det/model/first_stage": "cap2det/step/forward",
     "cap2det/kernel/roi_crop_maxpool": "cap2det/step/forward",
     "cap2det/model/second_stage": "cap2det/step/forward",
@@ -160,6 +163,29 @@ def test_every_step_and_predict_span_nests_in_its_parent(cell):
     assert names.count("cap2det/predict/resize") == 2 * scales
     assert names.count("cap2det/postprocess/nms") == 2 * (
         1 + cfg["model"]["oicr_iterations"])
+
+
+def test_the_folds_kernel_spans_nest_and_name_launch_counters(cell,
+                                                              monkeypatch):
+    """The card's fold path (its launches walked on the CPU): the fold's
+    span inside ``cap2det/model/bn_fold`` and its backward's inside
+    ``cap2det/step/backward``, once a step each; every kernel span names
+    a counter of ``kernels.launch_counts()``."""
+    from cap2det_tpu_torch import kernels
+    from tests.test_torch_bn_fold import walk_the_kernels
+
+    walk_the_kernels(monkeypatch)
+    cfg, batches, _ = cell
+    train = _train_program(cfg)
+    _, spans = _profiled(lambda: [train.step(b, SEED) for b in batches])
+    _assert_nested(spans, dict(STEP_PARENTS, **{
+        "cap2det/kernel/bn_fold_grad": "cap2det/step/backward"}))
+    names = [e["name"] for e in spans]
+    assert names.count("cap2det/kernel/bn_fold") == len(batches)
+    assert names.count("cap2det/kernel/bn_fold_grad") == len(batches)
+    prefix = "cap2det/kernel/"
+    assert {n[len(prefix):] for n in names if n.startswith(prefix)} <= set(
+        kernels.launch_counts())
 
 
 def test_the_profiler_changes_no_bit_of_the_step_or_predict(cell):
