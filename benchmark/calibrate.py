@@ -119,7 +119,7 @@ def control_outputs(sample, examples, params, config, device):
     """The reference in bfloat16 in the program's place: its mean scores
     and its own postprocess of them, as the program's outputs hold
     them."""
-    folded = predict.ref.fold_all(params, torch.bfloat16)
+    folded = predict.ref.fold_all(params, config["model"], torch.bfloat16)
     outputs = {}
     for i in sample:
         scores, props, num = predict.reference_scores(

@@ -79,7 +79,7 @@ def check_numbers(sample, examples, outputs, params, config, device,
     program's outputs of the sampled images against the reference: its
     mean scores, its postprocess of the program's mean scores, and its
     detections end to end from its own mean scores."""
-    folded = ref.fold_all(params, torch.bfloat16)
+    folded = ref.fold_all(params, config["model"], torch.bfloat16)
     gap, mismatch, own = 0.0, 0, 0
     iterations = config["model"]["oicr_iterations"]
     for i in sample:

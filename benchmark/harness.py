@@ -10,7 +10,10 @@ Files, by the names in ``BENCHMARK.json``:
 * ``drivers/<driver>.py``: ``run(ctx)`` drives one entry of the program;
 * ``limits/<config>.<driver>.json``: the limit of each compared number;
 * ``metrics/<metric>.py``: ``read(traced)`` -> a number, or None when the
-  traced run holds nothing to read.
+  traced run holds nothing to read;
+* ``reference/<feature_extractor>.py``: the reference's backbone of the
+  configurations whose ``model.feature_extractor`` names it (its
+  weights, preprocess and both stages; see ``reference/cap2det.py``).
 """
 
 from __future__ import annotations
@@ -195,8 +198,7 @@ def spans(targets):
     runs inside a ``record_function`` span: `label`, or with `on_call`
     (called with the bound arguments and the result) `label` + "#n", n
     counting the calls. Module attributes are restored and instance
-    attributes deleted on exit (``tools/profile_step.host_spans``'
-    method)."""
+    attributes deleted on exit."""
     import torch
 
     patched = []

@@ -1,17 +1,23 @@
-"""Plain Cap2Det: InceptionV2 with the Faster-RCNN split, the ROI crop and
-pool, MIDN and OICR heads, their losses, multi-scale prediction and
-class-wise greedy NMS, in plain PyTorch operations.
+"""Plain Cap2Det: the Faster-RCNN split around a backbone found by name,
+the ROI crop and pool, MIDN and OICR heads, their losses, multi-scale
+prediction and class-wise greedy NMS, in plain PyTorch operations.
 
 A frozen copy of the plain versions the measured program keeps beside
 its kernels, written against the benchmark's own configuration values:
 TF SAME padding, frozen BatchNorm folded into each convolution (eps
 1e-3), the ROI crop with TF ``crop_and_resize`` sampling and a VALID
-max-pool, the second stage's SAME pools as shifted slices, whose max-pool
-backward routes each window's gradient to its first maximal tap; the
-heads, losses and the float64 softmax of the postprocess. Convolutions
-run in the dtype the configuration states for them; the rest in float32,
-or in ``head_dtype`` where a caller asks for a lower precision (the
-comparison's control).
+max-pool; the heads, losses and the float64 softmax of the postprocess.
+Convolutions run in the dtype the configuration states for them; the
+rest in float32, or in ``head_dtype`` where a caller asks for a lower
+precision (the comparison's control).
+
+The backbone is ``benchmark/reference/<model["feature_extractor"]>.py``
+(``backbone``). It defines ``FEATURE_DIM`` (the width of the pooled
+proposal features), ``param_spec()`` (its leaves in both scopes, and
+its empty branches), ``dense_weights(node)`` (the dense kernel of a
+convolution node that holds no plain ``weights``, or None),
+``preprocess(images)``, ``first_stage(folded, images)`` and
+``second_stage(folded, rois)``.
 
 Weights are a nested dict of tensors in PyTorch layout (convolutions
 OIHW, fully connected [out, in]); ``param_spec`` lists them.
@@ -19,92 +25,30 @@ OIHW, fully connected [out, in]); ``param_spec`` lists them.
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 BN_EPSILON = 0.001
-FEATURE_DIM = 1024
 FIRST_SCOPE = "first_stage_feature_extraction"
 SECOND_SCOPE = "second_stage_feature_extraction"
 
-# Inception blocks: per branch a list of (name, kernel, cout, stride); a
-# pool is ("pool_avg" | "pool_max", kernel, None, stride).
-BLOCKS_FIRST = {
-    "Mixed_3b": [
-        [("Conv2d_0a_1x1", 1, 64, 1)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 64, 1)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 96, 1),
-         ("Conv2d_0c_3x3", 3, 96, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 32, 1)],
-    ],
-    "Mixed_3c": [
-        [("Conv2d_0a_1x1", 1, 64, 1)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 96, 1)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 96, 1),
-         ("Conv2d_0c_3x3", 3, 96, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 64, 1)],
-    ],
-    "Mixed_4a": [
-        [("Conv2d_0a_1x1", 1, 128, 1), ("Conv2d_1a_3x3", 3, 160, 2)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 96, 1),
-         ("Conv2d_1a_3x3", 3, 96, 2)],
-        [("pool_max", 3, None, 2)],
-    ],
-    "Mixed_4b": [
-        [("Conv2d_0a_1x1", 1, 224, 1)],
-        [("Conv2d_0a_1x1", 1, 64, 1), ("Conv2d_0b_3x3", 3, 96, 1)],
-        [("Conv2d_0a_1x1", 1, 96, 1), ("Conv2d_0b_3x3", 3, 128, 1),
-         ("Conv2d_0c_3x3", 3, 128, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 128, 1)],
-    ],
-    "Mixed_4c": [
-        [("Conv2d_0a_1x1", 1, 192, 1)],
-        [("Conv2d_0a_1x1", 1, 96, 1), ("Conv2d_0b_3x3", 3, 128, 1)],
-        [("Conv2d_0a_1x1", 1, 96, 1), ("Conv2d_0b_3x3", 3, 128, 1),
-         ("Conv2d_0c_3x3", 3, 128, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 128, 1)],
-    ],
-    "Mixed_4d": [
-        [("Conv2d_0a_1x1", 1, 160, 1)],
-        [("Conv2d_0a_1x1", 1, 128, 1), ("Conv2d_0b_3x3", 3, 160, 1)],
-        [("Conv2d_0a_1x1", 1, 128, 1), ("Conv2d_0b_3x3", 3, 160, 1),
-         ("Conv2d_0c_3x3", 3, 160, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 96, 1)],
-    ],
-    "Mixed_4e": [
-        [("Conv2d_0a_1x1", 1, 96, 1)],
-        [("Conv2d_0a_1x1", 1, 128, 1), ("Conv2d_0b_3x3", 3, 192, 1)],
-        [("Conv2d_0a_1x1", 1, 160, 1), ("Conv2d_0b_3x3", 3, 192, 1),
-         ("Conv2d_0c_3x3", 3, 192, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 96, 1)],
-    ],
-}
-BLOCKS_SECOND = {
-    "Mixed_5a": [
-        [("Conv2d_0a_1x1", 1, 128, 1), ("Conv2d_1a_3x3", 3, 192, 2)],
-        [("Conv2d_0a_1x1", 1, 192, 1), ("Conv2d_0b_3x3", 3, 256, 1),
-         ("Conv2d_1a_3x3", 3, 256, 2)],
-        [("pool_max", 3, None, 2)],
-    ],
-    "Mixed_5b": [
-        [("Conv2d_0a_1x1", 1, 352, 1)],
-        [("Conv2d_0a_1x1", 1, 192, 1), ("Conv2d_0b_3x3", 3, 320, 1)],
-        [("Conv2d_0a_1x1", 1, 160, 1), ("Conv2d_0b_3x3", 3, 224, 1),
-         ("Conv2d_0c_3x3", 3, 224, 1)],
-        [("pool_avg", 3, None, 1), ("Conv2d_0b_1x1", 1, 128, 1)],
-    ],
-    "Mixed_5c": [
-        [("Conv2d_0a_1x1", 1, 352, 1)],
-        [("Conv2d_0a_1x1", 1, 192, 1), ("Conv2d_0b_3x3", 3, 320, 1)],
-        [("Conv2d_0a_1x1", 1, 192, 1), ("Conv2d_0b_3x3", 3, 224, 1),
-         ("Conv2d_0c_3x3", 3, 224, 1)],
-        [("pool_max", 3, None, 1), ("Conv2d_0b_1x1", 1, 128, 1)],
-    ],
-}
-FIRST_BLOCKS = list(BLOCKS_FIRST)
-SECOND_BLOCKS = list(BLOCKS_SECOND)
-FIRST_STAGE_DEPTH = 576
+
+def backbone(model):
+    """The reference's backbone module that the configuration names."""
+    name = model["feature_extractor"]
+    module = "%s.%s" % (__package__, name)
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ModuleNotFoundError(
+            "no reference backbone for feature_extractor %r: "
+            "benchmark/reference/%s.py is missing" % (name, name),
+            name=module) from None
 
 
 # ---------------------------------------------------------------------------
@@ -112,64 +56,37 @@ FIRST_STAGE_DEPTH = 576
 # ---------------------------------------------------------------------------
 
 
-def _bn(prefix, cout):
+def bn_leaves(prefix, cout):
+    """The frozen BatchNorm leaves of the convolution at `prefix`."""
     return [(prefix + ("BatchNorm", "beta"), (cout,), "zeros"),
             (prefix + ("BatchNorm", "moving_mean"), (cout,), "zeros"),
             (prefix + ("BatchNorm", "moving_variance"), (cout,), "ones")]
 
 
-def _block_spec(prefix, spec, cin):
-    leaves, empty, total = [], [], 0
-    for b, branch in enumerate(spec):
-        c = cin
-        convs = [layer for layer in branch if not layer[0].startswith("pool")]
-        if not convs:
-            empty.append(prefix + ("Branch_%d" % b,))
-        for name, k, cout, _ in convs:
-            path = prefix + ("Branch_%d" % b, name)
-            leaves.append((path + ("weights",), (cout, c, k, k),
-                           (2.0 / (k * k * c)) ** 0.5))
-            leaves += _bn(path, cout)
-            c = cout
-        total += c
-    return leaves, empty, total
+def conv_leaves(prefix, cout, cin, k):
+    """A k x k convolution's He-scaled weights and its BatchNorm."""
+    return ([(prefix + ("weights",), (cout, cin, k, k),
+              (2.0 / (k * k * cin)) ** 0.5)] + bn_leaves(prefix, cout))
 
 
-def param_spec(num_classes, oicr_iterations, fc_stddev=0.01):
-    """([(path, shape, init)], [path of an empty pool-only branch]).
+def param_spec(model):
+    """([(path, shape, init)], [path of an empty pool-only branch]): the
+    backbone's leaves, then the heads over its ``FEATURE_DIM``.
 
     ``init`` is "zeros", "ones", or the standard deviation of a normal
     truncated at two deviations: sqrt(2 / fan_in) for a convolution (He),
-    `fc_stddev` for a fully connected layer."""
-    first = (FIRST_SCOPE, "InceptionV2")
-    leaves = [
-        (first + ("Conv2d_1a_7x7", "depthwise_weights"), (3, 8, 7, 7),
-         (2.0 / 49) ** 0.5),
-        (first + ("Conv2d_1a_7x7", "pointwise_weights"), (64, 24, 1, 1),
-         (2.0 / 24) ** 0.5),
-    ] + _bn(first + ("Conv2d_1a_7x7",), 64)
-    for name, k, cin, cout in [("Conv2d_2b_1x1", 1, 64, 64),
-                               ("Conv2d_2c_3x3", 3, 64, 192)]:
-        leaves.append((first + (name, "weights"), (cout, cin, k, k),
-                       (2.0 / (k * k * cin)) ** 0.5))
-        leaves += _bn(first + (name,), cout)
-    empty = []
-    cin = 192
-    for scope, blocks, names in ((FIRST_SCOPE, BLOCKS_FIRST, FIRST_BLOCKS),
-                                 (SECOND_SCOPE, BLOCKS_SECOND,
-                                  SECOND_BLOCKS)):
-        for name in names:
-            block, holes, cin = _block_spec((scope, "InceptionV2", name),
-                                            blocks[name], cin)
-            leaves += block
-            empty += holes
+    ``model["fc_stddev"]`` for a fully connected layer."""
+    net = backbone(model)
+    features = net.FEATURE_DIM
+    num_classes, fc_stddev = model["num_classes"], model["fc_stddev"]
+    leaves, empty = net.param_spec()
     for name in ("proba_r_given_c", "proba_c_given_r"):
-        leaves += [(("midn", name, "weights"), (num_classes, FEATURE_DIM),
+        leaves += [(("midn", name, "weights"), (num_classes, features),
                     fc_stddev),
                    (("midn", name, "biases"), (num_classes,), "zeros")]
-    for i in range(oicr_iterations):
+    for i in range(model["oicr_iterations"]):
         key = "iter%d" % (i + 1)
-        leaves += [(("oicr", key, "weights"), (1 + num_classes, FEATURE_DIM),
+        leaves += [(("oicr", key, "weights"), (1 + num_classes, features),
                     fc_stddev),
                    (("oicr", key, "biases"), (1 + num_classes,), "zeros")]
     return leaves, empty
@@ -205,7 +122,7 @@ def flatten(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
-# Backbone
+# Convolutions: the BN fold and TF SAME padding
 # ---------------------------------------------------------------------------
 
 
@@ -216,36 +133,32 @@ def same_pads(size, kernel, stride):
     return out, pad_total // 2, pad_total - pad_total // 2
 
 
-def _fold_bn(w, bn, dtype):
+def fold_bn(w, bn, dtype):
+    """A convolution's frozen BatchNorm folded into its weights `w` and a
+    bias, in `dtype`."""
     inv = torch.rsqrt(bn["moving_variance"] + BN_EPSILON)
     w = (w * inv[:, None, None, None]).to(dtype)
     return {"weight": w.contiguous(memory_format=torch.channels_last),
             "bias": (bn["beta"] - bn["moving_mean"] * inv).to(dtype)}
 
 
-def _compose_separable(p):
-    dw = p["depthwise_weights"]  # [cin, mult, kh, kw]
-    pw = p["pointwise_weights"]  # [cout, cin*mult, 1, 1]
-    cin, mult = dw.shape[:2]
-    return torch.einsum("cmuv,ocm->ocuv", dw, pw.reshape(-1, cin, mult))
-
-
-def fold(params, dtype):
+def fold(params, dtype, dense_weights):
     """Every convolution's frozen BatchNorm folded into its weights and
-    bias in `dtype`; the separable stem composed into one dense conv."""
+    bias in `dtype`. A node is a convolution where it holds ``weights``,
+    or where `dense_weights` (the backbone's) composes it into one dense
+    kernel."""
     out = {}
     for key, value in params.items():
-        if "depthwise_weights" in value:
-            out[key] = _fold_bn(_compose_separable(value),
-                                value["BatchNorm"], dtype)
-        elif "weights" in value:
-            out[key] = _fold_bn(value["weights"], value["BatchNorm"], dtype)
-        else:
-            out[key] = fold(value, dtype)
+        w = dense_weights(value)
+        if w is None and "weights" in value:
+            w = value["weights"]
+        out[key] = (fold(value, dtype, dense_weights) if w is None
+                    else fold_bn(w, value["BatchNorm"], dtype))
     return out
 
 
-def _conv_relu(conv, x, stride):
+def conv_relu(conv, x, stride):
+    """ReLU of a folded convolution of NCHW x with TF SAME padding."""
     w = conv["weight"]
     k = w.shape[-1]
     _, pt, pb = same_pads(x.shape[2], k, stride)
@@ -257,148 +170,6 @@ def _conv_relu(conv, x, stride):
     out = F.conv2d(x.to(w.dtype), w, conv["bias"], stride=stride,
                    padding=padding)
     return torch.relu_(out)
-
-
-def _pool_dense(x, kind, kernel, stride):
-    _, pt, pb = same_pads(x.shape[2], kernel, stride)
-    _, pl, pr = same_pads(x.shape[3], kernel, stride)
-    if kind == "pool_max":
-        x = F.pad(x, (pl, pr, pt, pb), value=-float("inf"))
-        return F.max_pool2d(x, kernel, stride)
-    return F.avg_pool2d(x, kernel, stride, padding=(pt, pl),
-                        count_include_pad=False)
-
-
-def _geometry(h, w, kernel, stride):
-    out_h, pad_t, pad_b = same_pads(h, kernel, stride)
-    out_w, pad_l, pad_r = same_pads(w, kernel, stride)
-    return out_h, out_w, (0, 0, pad_l, pad_r, pad_t, pad_b)
-
-
-def _taps(kernel, stride, out_h, out_w):
-    return [(slice(None), slice(i, i + (out_h - 1) * stride + 1, stride),
-             slice(j, j + (out_w - 1) * stride + 1, stride))
-            for i in range(kernel) for j in range(kernel)]
-
-
-def _counts(h, w, kernel, stride, device):
-    out_h, out_w, pads = _geometry(h, w, kernel, stride)
-    ones = F.pad(torch.ones((1, h, w, 1), device=device), pads)
-    return sum(ones[t] for t in _taps(kernel, stride, out_h, out_w))
-
-
-def pool_same(x, kind, kernel, stride):
-    """SAME pool of NHWC x: -inf (max) or zero (avg) padding, shifted
-    strided slices; the average divides by the in-bounds taps."""
-    _, h, w, _ = x.shape
-    out_h, out_w, pads = _geometry(h, w, kernel, stride)
-    taps = _taps(kernel, stride, out_h, out_w)
-    if kind == "pool_max":
-        xp = F.pad(x, pads, value=-float("inf"))
-        acc = xp[taps[0]]
-        for t in taps[1:]:
-            acc = torch.maximum(acc, xp[t])
-        return acc
-    xp = F.pad(x.float(), pads)
-    acc = sum(xp[t] for t in taps)
-    return (acc / _counts(h, w, kernel, stride, x.device)).to(x.dtype)
-
-
-def maxpool_grad(x, g, kernel, stride):
-    """Each window's gradient to its first maximal tap (row-major),
-    summed tap by tap in float32."""
-    _, h, w, _ = x.shape
-    out_h, out_w, pads = _geometry(h, w, kernel, stride)
-    taps = _taps(kernel, stride, out_h, out_w)
-    xp = F.pad(x.float(), pads, value=-float("inf"))
-    views = [xp[t] for t in taps]
-    best = views[0]
-    for v in views[1:]:
-        best = torch.maximum(best, v)
-    gf = g.float()
-    taken = torch.zeros(best.shape, dtype=torch.bool, device=x.device)
-    acc = torch.zeros(xp.shape, dtype=torch.float32, device=x.device)
-    for t, view in zip(taps, views):
-        hit = (view >= best) & ~taken
-        taken |= hit
-        acc[t] += gf * hit
-    _, _, pad_l, _, pad_t, _ = pads
-    return acc[:, pad_t:pad_t + h, pad_l:pad_l + w].to(x.dtype)
-
-
-def avgpool_grad(x_shape, dtype, g, kernel, stride):
-    n, h, w, c = x_shape
-    out_h, out_w, pads = _geometry(h, w, kernel, stride)
-    gt = g.float() / _counts(h, w, kernel, stride, g.device)
-    _, _, pad_l, pad_r, pad_t, pad_b = pads
-    acc = torch.zeros((n, h + pad_t + pad_b, w + pad_l + pad_r, c),
-                      dtype=torch.float32, device=g.device)
-    for t in _taps(kernel, stride, out_h, out_w):
-        acc[t] += gt
-    return acc[:, pad_t:pad_t + h, pad_l:pad_l + w].to(dtype)
-
-
-class _PoolSame(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, kind, kernel, stride):
-        ctx.conf = (kind, kernel, stride)
-        ctx.x_shape, ctx.x_dtype = tuple(x.shape), x.dtype
-        if kind == "pool_max":
-            ctx.save_for_backward(x)
-        return pool_same(x, kind, kernel, stride)
-
-    @staticmethod
-    def backward(ctx, g):
-        kind, kernel, stride = ctx.conf
-        g = g.contiguous()
-        if kind == "pool_max":
-            (x,) = ctx.saved_tensors
-            return maxpool_grad(x, g, kernel, stride), None, None, None
-        return (avgpool_grad(ctx.x_shape, ctx.x_dtype, g, kernel, stride),
-                None, None, None)
-
-
-def _pool_roi(x, kind, kernel, stride):
-    nhwc = _PoolSame.apply(x.permute(0, 2, 3, 1).contiguous(), kind, kernel,
-                           stride)
-    return nhwc.permute(0, 3, 1, 2)
-
-
-def _block(params, spec, x, pool_fn):
-    outputs = []
-    for b, branch in enumerate(spec):
-        bp = params["Branch_%d" % b]
-        h = x
-        for name, k, _, stride in branch:
-            if name.startswith("pool_"):
-                h = pool_fn(h, name, k, stride)
-            else:
-                h = _conv_relu(bp[name], h, stride)
-        outputs.append(h)
-    return torch.cat(outputs, dim=1)
-
-
-def first_stage(folded, images):
-    """Preprocessed [B, H, W, 3] -> Mixed_4e [B, H/16, W/16, 576] NHWC."""
-    p = folded["InceptionV2"]
-    x = images.contiguous().permute(0, 3, 1, 2)
-    x = _conv_relu(p["Conv2d_1a_7x7"], x, 2)
-    x = _pool_dense(x, "pool_max", 3, 2)
-    x = _conv_relu(p["Conv2d_2b_1x1"], x, 1)
-    x = _conv_relu(p["Conv2d_2c_3x3"], x, 1)
-    x = _pool_dense(x, "pool_max", 3, 2)
-    for name in FIRST_BLOCKS:
-        x = _block(p[name], BLOCKS_FIRST[name], x, _pool_dense)
-    return x.permute(0, 2, 3, 1).contiguous()
-
-
-def second_stage(folded, rois):
-    """ROI maps [N, S, S, 576] -> Mixed_5c [N, S', S', 1024] NHWC."""
-    p = folded["InceptionV2"]
-    x = rois.contiguous().permute(0, 3, 1, 2)
-    for name in SECOND_BLOCKS:
-        x = _block(p[name], BLOCKS_SECOND[name], x, _pool_roi)
-    return x.permute(0, 2, 3, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -570,11 +341,12 @@ def dropout(x, keep_prob, generator):
 
 def extract_features(folded, images, proposals, model, is_training=False,
                      generator=None, mean_dtype=torch.float32):
-    """[B, P, 1024] pooled proposal features in `mean_dtype`."""
+    """[B, P, FEATURE_DIM] pooled proposal features in `mean_dtype`."""
+    net = backbone(model)
     batch, num_p = proposals.shape[:2]
     keep_prob = model["dropout_keep_prob"]
-    pre = (2.0 / 255.0) * images.float() - 1.0
-    features = first_stage(folded[FIRST_SCOPE], pre)
+    features = net.first_stage(folded[FIRST_SCOPE],
+                               net.preprocess(images))
     if is_training and model["dropout_on_feature_map"]:
         features = dropout(features, keep_prob, generator)
     rois = _RoiCropMaxpool.apply(features, proposals.float().contiguous(),
@@ -583,7 +355,7 @@ def extract_features(folded, images, proposals, model, is_training=False,
                                  model["maxpool_stride"])
     s = rois.shape[2]
     rois = rois.reshape(batch * num_p, s, s, rois.shape[-1])
-    box_features = second_stage(folded[SECOND_SCOPE], rois)
+    box_features = net.second_stage(folded[SECOND_SCOPE], rois)
     pooled = box_features.to(mean_dtype).mean(dim=(1, 2))
     if is_training and keep_prob < 1.0:
         pooled = dropout(pooled, keep_prob, generator)
@@ -677,9 +449,10 @@ def predictions(params, folded, images, proposals, num_proposals, model,
     return preds
 
 
-def fold_all(params, conv_dtype):
+def fold_all(params, model, conv_dtype):
     """The tree the forward reads: both stages folded, heads as they are."""
-    return {**params, **{scope: fold(params[scope], conv_dtype)
+    dense = backbone(model).dense_weights
+    return {**params, **{scope: fold(params[scope], conv_dtype, dense)
                          for scope in (FIRST_SCOPE, SECOND_SCOPE)}}
 
 
@@ -688,9 +461,10 @@ def loss(params, batch, model, generator, conv_dtype=torch.bfloat16,
     """The training loss of a batch {"image" [B,H,W,3] uint8, "proposals"
     [B,P,4], "num_proposals" [B], "labels" [B,C]}: MIDN sigmoid CE, each
     OICR refinement's CE against detached targets, the heads' L2."""
-    preds = predictions(params, fold_all(params, conv_dtype), batch["image"],
-                        batch["proposals"], batch["num_proposals"], model,
-                        True, generator, head_dtype)
+    preds = predictions(params, fold_all(params, model, conv_dtype),
+                        batch["image"], batch["proposals"],
+                        batch["num_proposals"], model, True, generator,
+                        head_dtype)
     labels = batch["labels"].float().to(head_dtype)
     mask = preds["proposal_mask"]
     proposals = batch["proposals"].float()

@@ -30,12 +30,13 @@ def cached(kind, config, canvases, count):
     """`count(config, canvases)` -> {canvas: (base operations, operations
     per valid proposal of an image)}, kept in the
     checkout's build directory under a key of everything the count reads
-    (the configuration, the reference's and this file's sources, torch's
-    version), so only a checkout's first run pays the counter's start-up
-    (seconds of importing its machinery)."""
+    (the configuration, the sources of the reference, its backbone and
+    this file, torch's version), so only a checkout's first run pays the
+    counter's start-up (seconds of importing its machinery)."""
     h = hashlib.sha256(json.dumps([kind, config, [list(c) for c in canvases],
                                    torch.__version__]).encode())
-    for source in (ref.__file__, __file__):
+    for source in (ref.__file__, ref.backbone(config["model"]).__file__,
+                   __file__):
         h.update(Path(source).read_bytes())
     path = CACHE / (h.hexdigest()[:24] + ".json")
     try:
@@ -54,9 +55,7 @@ def cached(kind, config, canvases, count):
 
 
 def _meta_params(model, trainable_fn=None):
-    leaves, empty = ref.param_spec(model["num_classes"],
-                                   model["oicr_iterations"],
-                                   model["fc_stddev"])
+    leaves, empty = ref.param_spec(model)
     values = []
     for path, shape, _ in leaves:
         t = torch.empty(shape, device="meta")
@@ -75,12 +74,14 @@ def _train_params(config):
 def _first_stage_flops(config, canvas_hw):
     """The first stage's forward, and its backward where the freeze
     trains part of it, on a training batch of `canvas_hw`."""
+    net = ref.backbone(config["model"])
     params = _train_params(config)
     scope = params[ref.FIRST_SCOPE]
     leaves = [leaf for _, leaf in ref.flatten(scope) if leaf.requires_grad]
     b = config["train"]["batch_size"]
     with FlopCounterMode(display=False) as counter:
-        out = ref.first_stage(ref.fold(scope, torch.bfloat16),
+        out = net.first_stage(ref.fold(scope, torch.bfloat16,
+                                       net.dense_weights),
                               torch.empty((b, *canvas_hw, 3), device="meta"))
         if leaves:
             torch.autograd.grad(out.float().sum(), leaves)
@@ -147,7 +148,7 @@ def predict_scale_flops(config, canvas_hw, p):
     model = config["model"]
     params = _meta_params(model)
     with torch.no_grad():
-        folded = ref.fold_all(params, torch.bfloat16)
+        folded = ref.fold_all(params, model, torch.bfloat16)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         ref.predictions(params, folded,
                         torch.empty((1, *canvas_hw, 3), device="meta"),

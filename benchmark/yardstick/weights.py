@@ -2,7 +2,8 @@
 
 One flat buffer of truncated normals is drawn with a ``torch.Generator``
 on the device in one call, then cut into the leaves of
-``reference.cap2det.param_spec`` and scaled by each leaf's deviation.
+``reference.cap2det.param_spec`` (the configuration's backbone, then the
+heads) and scaled by each leaf's deviation.
 Both the program and the reference are handed the same tensors (the
 reference a copy), in PyTorch layout."""
 
@@ -17,9 +18,7 @@ from benchmark.reference import cap2det as ref
 
 def make_params(model, seed, device):
     """{path...: float32 tensor} nested as the program's params tree."""
-    leaves, empty = ref.param_spec(model["num_classes"],
-                                   model["oicr_iterations"],
-                                   model["fc_stddev"])
+    leaves, empty = ref.param_spec(model)
     normal = [(path, shape, std) for path, shape, std in leaves
               if not isinstance(std, str)]
     total = sum(math.prod(shape) for _, shape, _ in normal)
