@@ -6,7 +6,8 @@ Each function launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors: ``pool_fwd`` (K4, ``csrc/pool.cu``),
 ``maxpool_grad`` (K5) and ``avgpool_grad`` (K6, both ``csrc/pool_grad.cu``).
 ``pool_same`` is the differentiable pool the model uses for every
-second-stage pool: a ``torch.autograd.Function`` whose forward is K4 and
+second-stage pool (``pool_dense``, plain PyTorch, pools the first stage's
+large maps): a ``torch.autograd.Function`` whose forward is K4 and
 whose backward is K5 or K6. Max-pool gradients route first-tie, as TF
 MaxPoolGrad and the Pallas kernels do: the whole gradient of a window goes
 to its first maximal tap in row-major order. K5 and K6 each have a tiled
@@ -57,6 +58,23 @@ def same_pads(size, kernel, stride):
     out = -(-size // stride)
     pad_total = max((out - 1) * stride + kernel - size, 0)
     return out, pad_total // 2, pad_total - pad_total // 2
+
+
+def pool_dense(x, kind, kernel, stride):
+    """SAME pool of a large NCHW map (a first stage's): the explicit
+    -inf-padded max-pool, or the in-bounds-count avg-pool, in plain
+    PyTorch. Every avg pool the backbones run is 3x3/s1, whose SAME
+    padding is symmetric."""
+    _, pt, pb = same_pads(x.shape[2], kernel, stride)
+    _, pl, pr = same_pads(x.shape[3], kernel, stride)
+    if kind == "pool_max":
+        x = F.pad(x, (pl, pr, pt, pb), value=-float("inf"))
+        return F.max_pool2d(x, kernel, stride)
+    if pt != pb or pl != pr:
+        raise ValueError("asymmetric SAME avg-pool padding (kernel %d, "
+                         "stride %d) is not supported" % (kernel, stride))
+    return F.avg_pool2d(x, kernel, stride, padding=(pt, pl),
+                        count_include_pad=False)
 
 
 def in_bounds_taps(h, w, kernel, stride):

@@ -25,8 +25,6 @@ from cap2det_tpu_torch.ops import softmax as softmax_ops
 from cap2det_tpu_torch.text import extractors as extractors_lib
 from cap2det_tpu_torch.utils.spans import span
 
-FEATURE_DIM = 1024
-
 
 class Cap2DetModel(ModelBase):
     """Cap2Det on one device ("cuda" unless the caller asks for the CPU).
@@ -53,6 +51,7 @@ class Cap2DetModel(ModelBase):
         self._options = options
         self._compute_dtype = compute_dtype
         self._second_stage_remat = bool(second_stage_remat)
+        self._backbone = frcnn.backbone(options.frcnn_options)
         self._device = params_lib.resolve_device(device)
         extractor_kwargs = {}  # a text classifier runs on the CPU
         if (options.label_extractor is not None
@@ -83,22 +82,29 @@ class Cap2DetModel(ModelBase):
     def num_classes(self):
         return self.label_extractor.num_classes
 
+    @property
+    def feature_dim(self):
+        """The width of the pooled proposal features: the backbone's
+        (1024 for InceptionV2, 2048 for ResNet-101)."""
+        return self._backbone.FEATURE_DIM
+
     # -- params ----------------------------------------------------------------
 
     def init_jax_numpy(self, seed):
         """Random params as a JAX-layout numpy tree, with the names and
         shapes of the JAX ``Cap2DetModel.init_params`` (He-scaled convs:
-        see ``inception_v2.init_first_stage_params_numpy``)."""
+        see ``inception_v2.init_first_stage_params_numpy``; ResNet-101's
+        have TF's names and shapes, ``resnet_v1``)."""
         rng = np.random.default_rng(seed)
         tree = frcnn.init_params_numpy(rng, self._options.frcnn_options)
-        c = self.num_classes
+        c, features = self.num_classes, self.feature_dim
         tree["midn"] = {
-            name: wsod.init_fc_numpy(rng, FEATURE_DIM, c, self._fc_stddev)
+            name: wsod.init_fc_numpy(rng, features, c, self._fc_stddev)
             for name in ("proba_r_given_c", "proba_c_given_r")
         }
         tree["oicr"] = {
             "iter%d" % (i + 1): wsod.init_fc_numpy(
-                rng, FEATURE_DIM, 1 + c, self._fc_stddev
+                rng, features, 1 + c, self._fc_stddev
             )
             for i in range(self._options.oicr_iterations)
         }

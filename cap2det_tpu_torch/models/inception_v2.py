@@ -26,7 +26,7 @@ copy) for cuDNN. What the port reproduces, and how:
 - Avg-pool divides by the count of in-bounds taps.
 - Second-stage pools go through the SAME pool kernels at every N
   (``kernels/pool_grad.pool_same``: K4 forward, K5/K6 backward); the first
-  stage's large-map pools stay plain torch.
+  stage's large-map pools stay plain torch (``pool_grad.pool_dense``).
 - ``second_stage(remat=True)`` recomputes each Mixed_5 block in the
   backward instead of keeping its intermediates, as the JAX package's
   CAP2DET_SECOND_STAGE_REMAT=1 does; the port takes an argument, not an
@@ -130,6 +130,8 @@ FIRST_BLOCKS = ["Mixed_3b", "Mixed_3c", "Mixed_4a", "Mixed_4b", "Mixed_4c",
 SECOND_BLOCKS = ["Mixed_5a", "Mixed_5b", "Mixed_5c"]
 FIRST_STAGE_DEPTH = 576  # Mixed_4e output channels
 SECOND_STAGE_DEPTH = 1024  # Mixed_5c output channels
+FEATURE_DIM = SECOND_STAGE_DEPTH  # the pooled proposal features' width
+NET = "InceptionV2"  # the params tree's root
 
 
 # ---------------------------------------------------------------------------
@@ -213,59 +215,13 @@ def preprocess(images):
     return (2.0 / 255.0) * images - 1.0
 
 
-def _compose_separable(params):
-    """The separable stem conv as one dense OIHW conv (exact since the
-    pointwise conv is 1x1): W[o,c,u,v] = sum_m dw[c,m,u,v] pw[o,c*mult+m]."""
-    dw = params["depthwise_weights"]  # [cin, mult, kh, kw]
-    pw = params["pointwise_weights"]  # [cout, cin*mult, 1, 1]
-    cin, mult = dw.shape[:2]
-    if cin > 8:
-        raise ValueError("only the composed stem form (cin <= 8) is ported")
-    return torch.einsum("cmuv,ocm->ocuv", dw, pw.reshape(-1, cin, mult))
-
-
-def _gather(params, slots):
-    """`params`' tree as ``prepare`` returns it, each convolution's entry
-    left empty, and (its dict, its key, its OIHW weights, its BatchNorm)
-    appended to `slots` in order (the separable stem composed first)."""
-    out = {}
-    for key, value in params.items():
-        if "depthwise_weights" in value:
-            out[key] = None
-            slots.append((out, key, _compose_separable(value),
-                          value["BatchNorm"]))
-        elif "weights" in value:
-            out[key] = None
-            slots.append((out, key, value["weights"], value["BatchNorm"]))
-        else:
-            out[key] = _gather(value, slots)
-    return out
-
-
-def prepare_stages(stages, compute_dtype=torch.bfloat16):
-    """Several stages' params trees -> the trees ``first_stage`` and
-    ``second_stage`` read: every convolution's frozen BN folded into its
-    weights and bias in compute_dtype, the weights channels-last (the
-    separable stem composed into one dense conv first), all in one
-    ``kernels/bn_fold.fold`` call: one launch on the card. Serving makes
-    them once per set of params, so a forward pass launches no weight
-    arithmetic; training makes them inside the loss, where the fold is
-    differentiable in ``weights`` and ``beta`` (one more launch in the
-    backward) and frozen leaves build no graph."""
-    slots = []
-    trees = [_gather(params, slots) for params in stages]
-    folded = bn_fold.fold(
-        [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
-         for _, _, w, bn in slots], compute_dtype)
-    for (out, key, _, _), (weight, bias) in zip(slots, folded):
-        out[key] = {"weight": weight, "bias": bias}
-    return trees
-
-
 def prepare(params, compute_dtype=torch.bfloat16):
     """A stage's params tree -> the tree ``first_stage``/``second_stage``
-    read (``prepare_stages`` of the one stage)."""
-    return prepare_stages([params], compute_dtype)[0]
+    read: every convolution's frozen BN folded into its weights and bias
+    in compute_dtype, the weights channels-last, the separable stem
+    composed into one dense conv first (``bn_fold.fold_trees`` of the one
+    stage; ``frcnn.prepare`` folds both stages in one call)."""
+    return bn_fold.fold_trees([params], compute_dtype, BN_EPSILON)[0]
 
 
 def _conv_relu(conv, x, stride):
@@ -282,22 +238,6 @@ def _conv_relu(conv, x, stride):
     out = F.conv2d(x.to(w.dtype), w, conv["bias"], stride=stride,
                    padding=padding)
     return torch.relu_(out)
-
-
-def pool_dense(x, kind, kernel, stride):
-    """SAME pool of a large NCHW map (the first stage): the explicit
-    -inf-padded max-pool, or the in-bounds-count avg-pool. Every avg pool
-    of the network is 3x3/s1, whose SAME padding is symmetric."""
-    _, pt, pb = pool_grad.same_pads(x.shape[2], kernel, stride)
-    _, pl, pr = pool_grad.same_pads(x.shape[3], kernel, stride)
-    if kind == "pool_max":
-        x = F.pad(x, (pl, pr, pt, pb), value=-float("inf"))
-        return F.max_pool2d(x, kernel, stride)
-    if pt != pb or pl != pr:
-        raise ValueError("asymmetric SAME avg-pool padding (kernel %d, "
-                         "stride %d) is not supported" % (kernel, stride))
-    return F.avg_pool2d(x, kernel, stride, padding=(pt, pl),
-                        count_include_pad=False)
 
 
 def pool_roi(x, kind, kernel, stride):
@@ -339,12 +279,13 @@ def first_stage(prepared, images):
         p = prepared["InceptionV2"]
         x = _to_nchw(images.contiguous())
         x = _conv_relu(p["Conv2d_1a_7x7"], x, 2)
-        x = pool_dense(x, "pool_max", 3, 2)
+        x = pool_grad.pool_dense(x, "pool_max", 3, 2)
         x = _conv_relu(p["Conv2d_2b_1x1"], x, 1)
         x = _conv_relu(p["Conv2d_2c_3x3"], x, 1)
-        x = pool_dense(x, "pool_max", 3, 2)
+        x = pool_grad.pool_dense(x, "pool_max", 3, 2)
         for name in FIRST_BLOCKS:
-            x = _block(p[name], _BLOCKS_FIRST[name], x, pool_dense)
+            x = _block(p[name], _BLOCKS_FIRST[name], x,
+                       pool_grad.pool_dense)
         return _to_nhwc(x)
 
 

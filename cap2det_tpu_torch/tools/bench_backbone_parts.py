@@ -49,6 +49,7 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
+    from cap2det_tpu_torch.kernels import pool_grad
     from cap2det_tpu_torch.models import inception_v2 as iv2
 
     device = params_lib.resolve_device(args.device)
@@ -90,13 +91,13 @@ def main(argv=None):
     record("stem_sep7x7_s2",
            lambda: iv2._conv_relu(params["Conv2d_1a_7x7"], img, 2))
     x1 = bf((BATCH, 64, H // 2, W // 2))
-    record("stem_maxpool1", lambda: iv2.pool_dense(x1, "pool_max", 3, 2))
+    record("stem_maxpool1", lambda: pool_grad.pool_dense(x1, "pool_max", 3, 2))
     x2 = bf((BATCH, 64, H // 4, W // 4))
     record("stem_conv2b_2c", lambda: iv2._conv_relu(
         params["Conv2d_2c_3x3"],
         iv2._conv_relu(params["Conv2d_2b_1x1"], x2, 1), 1))
     x3 = bf((BATCH, 192, H // 4, W // 4))
-    record("stem_maxpool2", lambda: iv2.pool_dense(x3, "pool_max", 3, 2))
+    record("stem_maxpool2", lambda: pool_grad.pool_dense(x3, "pool_max", 3, 2))
 
     # Each Mixed block at its shape.
     inputs = {"Mixed_3b": (H // 8, W // 8, 192),
@@ -109,12 +110,12 @@ def main(argv=None):
     for name, (hh, ww, cin) in inputs.items():
         x = bf((BATCH, cin, hh, ww))
         record(name, lambda x=x, name=name: iv2._block(
-            params[name], iv2._BLOCKS_FIRST[name], x, iv2.pool_dense))
+            params[name], iv2._BLOCKS_FIRST[name], x, pool_grad.pool_dense))
 
     # The pools alone at Mixed_4e's input shape.
     xp = bf((BATCH, 576, H // 16, W // 16))
-    record("pool_avg_3x3_s1_4e", lambda: iv2.pool_dense(xp, "pool_avg", 3, 1))
-    record("pool_max_3x3_s1_4e", lambda: iv2.pool_dense(xp, "pool_max", 3, 1))
+    record("pool_avg_3x3_s1_4e", lambda: pool_grad.pool_dense(xp, "pool_avg", 3, 1))
+    record("pool_max_3x3_s1_4e", lambda: pool_grad.pool_dense(xp, "pool_max", 3, 1))
     record("reduce_window_max_4e", lambda: F.max_pool2d(xp, 3, 1, padding=1))
     return results
 

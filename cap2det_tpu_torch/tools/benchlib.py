@@ -221,14 +221,17 @@ def _kernel_flop_counts():
                                        features.shape[-1], crop_size,
                                        pool_kernel, pool_stride)
 
-    def fold(convs, dtype):
+    def fold(convs, dtype, **_):
         # The call fixes its backward's work too (on the CPU no separate
         # call runs it).
         counts = {"bn_fold": sum(bn_fold.fold_flops(w.numel(), w.shape[0])
                                  for w, *_ in convs)}
         trains = sum(w.numel() for w, *_ in convs if w.requires_grad)
-        if trains and torch.is_grad_enabled():
-            counts["bn_fold_grad"] = bn_fold.fold_grad_flops(trains)
+        gammas = sum(c[0].numel() for c in convs
+                     if len(c) > 4 and c[4] is not None
+                     and c[4].requires_grad)
+        if (trains or gammas) and torch.is_grad_enabled():
+            counts["bn_fold_grad"] = bn_fold.fold_grad_flops(trains, gammas)
         return counts
 
     return [

@@ -72,17 +72,25 @@ Phases (any failure ends the run with a nonzero exit code):
      weight and bias, one more gives the trainable leaves' gradients)
      against the per-convolution chain (bn_fold.fold_reference and
      autograd through it) at the trees and trainable sets of
-     coco17_extend_match and voc07_inc2 with seeded BN statistics, bit
+     coco17_extend_match, voc07_inc2 and the benchmark's
+     coco17_resnet101 (104 convolutions with gammas, epsilon 1e-5;
+     the gammas' gradients too) with seeded BN statistics, bit
      for bit with the same strides, one launch each; two steps of each
-     regime with the kernels against the chain under deterministic
-     cuDNN, bit for bit; the fold and its backward timed from a CUDA graph
-     and from the host beside the byte bound and the chain;
+     InceptionV2 regime with the kernels against the chain under
+     deterministic cuDNN, bit for bit; each set's fold and its backward
+     timed from a CUDA graph and from the host beside the byte bound and
+     the chain;
   7. train at configs/coco17_extend_match.pbtxt width (batch 2, 1024x1536
      canvases, P=500, 80 classes, Mixed_4e unfrozen, Adagrad): 3 warm-up
      and 12 timed steps, launch counts per step, finite losses, frozen
      leaves unchanged, a one-step breakdown by span, peak memory;
   8. train under the full first-stage freeze of configs/voc07_inc2.pbtxt
      (batch 1, P=2000, 20 classes): no ROI backward launches;
+ 8a. train ResNet-101 at the benchmark's coco17_resnet101 (batch 2,
+     1024x1536, P=500, 80 classes, block3 and block4 trainable; the
+     root's and each conv3's gammas scaled down, scale_resnet_gammas): per
+     step K1 1, K2 1, the fold 1 each way, the fused optimizer 4 (250
+     trainable leaves) and no pool kernel;
   9. bench: the measuring tools on the card, each a process of its own
      (python -m cap2det_tpu_torch.bench --shape bench, --shape inc2,
      --e2e; tools.bench_eval --examples 8; tools.profile_step --steps
@@ -207,7 +215,8 @@ Phases (any failure ends the run with a nonzero exit code):
      in steps and seconds, and no process of either left behind.
 
 Phases 2 and 5 also hold K1 and K2 at the largest coco17 training bucket
-(features [2, 76, 114, 576], P=500).
+(features [2, 76, 114, 576], P=500) and at ResNet-101's 1024-channel
+block3 maps of the 1024x1536 and 1216x1824 canvases.
 
 ``python3 chip_smoke.py --profile`` also reads one image's device kernel
 time and busy share with torch.profiler, and the training step's busy
@@ -215,7 +224,8 @@ share from a trace of train_loop's steps.
 
 The kernels line's bn_fold and bn_fold_grad rows give coco17's fold and
 its backward replayed from a CUDA graph as "ms", the training step's
-launches of each.
+launches of each; bn_fold.resnet101 and bn_fold_grad.resnet101 give
+ResNet-101's, with phase 8a's launches a step.
 
 The kernels line's fused_optimizer row gives the kernel's time replayed
 from a CUDA graph as "ms" (launched from the host, the wrapper's Python
@@ -260,7 +270,10 @@ K1_SHAPES = [("serve 1216x1824", (1, 76, 114, 576), 2000),
              ("serve 608x928", (1, 38, 58, 576), 2000),
              ("serve 416x608", (1, 26, 38, 576), 2000),
              ("train coco17", (2, 64, 96, 576), 500),
-             ("train coco17 1216x1824", (2, 76, 114, 576), 500)]
+             ("train coco17 1216x1824", (2, 76, 114, 576), 500),
+             # ResNet-101's block3 maps, 1024 channels.
+             ("train resnet101", (2, 64, 96, 1024), 500),
+             ("train resnet101 1216x1824", (2, 76, 114, 1024), 500)]
 BOX_SETS = {"mix": None, "wide": 0, "narrow": 1}  # make_boxes' kinds
 POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
     ("Mixed_5a max 3/s2", "pool_max", 3, 2, (2000, 7, 7, 576)),
@@ -279,6 +292,21 @@ TIMED_ROUNDS = 4  # passes over the 3 images: 12 samples per image time
 TRAIN_FEATURE_SHAPE = (2, 64, 96, 576)
 # The Mixed_4e map of the largest coco17 training bucket (1216x1824).
 TRAIN_LARGEST_FEATURE_SHAPE = (2, 76, 114, 576)
+# K2's further training maps, each held like the largest coco17 one:
+# (label, features).
+K2_MORE_SHAPES = [
+    ("train coco17 1216x1824", TRAIN_LARGEST_FEATURE_SHAPE),
+    ("train resnet101", (2, 64, 96, 1024)),  # ResNet-101's block3 maps
+    ("train resnet101 1216x1824", (2, 76, 114, 1024)),
+]
+# coco17_resnet101, the benchmark's configuration (ResNet-101 at the
+# coco17_extend_match shape: block3 and block4 trainable, no pools in the
+# second stage), and its launches per training step.
+RESNET_CONFIG = os.path.join("benchmark", "configs", "coco17_resnet101.json")
+RESNET_PER_STEP = {"roi_crop_maxpool": 1, "pool_fwd": 0,
+                   "roi_crop_maxpool_grad": 1, "maxpool_grad": 0,
+                   "avgpool_grad": 0, "fused_optimizer": 4, "nms": 0,
+                   "bn_fold": 1, "bn_fold_grad": 1}  # 250 trainable leaves
 TRAIN_P = 500
 TRAIN_POOL_SHAPES = [  # (name, kind, kernel, stride, [N, H, W, C])
     ("Mixed_5a max 3/s2", "pool_max", 3, 2, (1000, 7, 7, 576)),
@@ -1163,57 +1191,63 @@ def phase_roi_grad(torch):
                                      iters=20)}
         line.update(roi_pool.grad_atomic_counts(feats, boxes, grad, 14, 2, 2))
         log(json.dumps(line))
-    # The largest coco17 training bucket: exact, within GRAD_TOL of the
-    # plain version, the same bits twice, timed beside its bound.
-    feats32 = torch.from_numpy(rng.standard_normal(
-        TRAIN_LARGEST_FEATURE_SHAPE, dtype=np.float32)).cuda()
-    boxes = torch.from_numpy(np.stack([
-        make_boxes(rng, TRAIN_P, num_pad=TRAIN_P // 20)
-        for _ in range(batch)])).cuda()
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        feats, grad = feats32.to(dtype), grad32.to(dtype)
-        got = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2, 2)
-        exact = roi_ops.crop_resize_maxpool_grad(
-            feats, boxes, grad, 14, 2, 2, fixed_point=True)
-        again = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2, 2)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, exact) and torch.equal(got, again)):
-            raise AssertionError(
-                "roi_crop_maxpool_grad: %s at %s differs from its fixed-point "
-                "oracle or between launches" % (name,
-                                                TRAIN_LARGEST_FEATURE_SHAPE))
-        err = compare(torch, got, roi_ops.crop_resize_maxpool_grad(
-            feats, boxes, grad, 14, 2, 2), name, GRAD_TOL)
-        result["max_abs_err"] = max(result["max_abs_err"], err)
-        line = {"kernel": "roi_crop_maxpool_grad",
-                "shape": "train coco17 1216x1824",
-                "features": list(TRAIN_LARGEST_FEATURE_SHAPE), "P": TRAIN_P,
-                "dtype": name, "max_abs_err_exact": 0.0, "max_abs_err": err,
-                "tol(rtol,atol)": GRAD_TOL[name],
-                "run_to_run_max_abs_diff": 0.0}
-        if dtype == torch.bfloat16:
-            nbytes = (2 * feats.numel() * feats.element_size()
-                      + boxes.numel() * 4 + grad.numel() * grad.element_size())
-            b_ms, b_by = bound_ms(nbytes, roi_pool.backward_flops(
-                *boxes.shape[:2], feats.shape[-1], 14, 2, 2))
-            line.update(
-                kernel_ms=cuda_ms(lambda: roi_pool.
-                                  roi_crop_maxpool_grad(
-                                      feats, boxes, grad, 14, 2, 2),
-                                  iters=20),
-                plain_ms=cuda_ms(lambda: roi_ops.
-                                 crop_resize_maxpool_grad(
-                                     feats, boxes, grad, 14, 2, 2),
-                                 iters=2, warmup=1),
-                bound_ms=b_ms, bound_by=b_by)
-            line["kernel_over_bound"] = line["kernel_ms"] / b_ms
-            line.update(roi_pool.grad_atomic_counts(feats, boxes, grad, 14,
-                                                    2, 2))
-        log(json.dumps(line))
+    # The largest coco17 training bucket and ResNet-101's maps: exact,
+    # within GRAD_TOL of the plain version, the same bits twice, timed
+    # beside its bound.
+    for label, shape in K2_MORE_SHAPES:
+        feats32 = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+        boxes = torch.from_numpy(np.stack([
+            make_boxes(rng, TRAIN_P, num_pad=TRAIN_P // 20)
+            for _ in range(batch)])).cuda()
+        grads32 = grad32 if shape[-1] == grad32.shape[-1] else \
+            torch.from_numpy(rng.standard_normal(
+                (batch, TRAIN_P, 7, 7, shape[-1]), dtype=np.float32)).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            feats, grad = feats32.to(dtype), grads32.to(dtype)
+            got = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14, 2,
+                                                 2)
+            exact = roi_ops.crop_resize_maxpool_grad(
+                feats, boxes, grad, 14, 2, 2, fixed_point=True)
+            again = roi_pool.roi_crop_maxpool_grad(feats, boxes, grad, 14,
+                                                   2, 2)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, exact) and torch.equal(got, again)):
+                raise AssertionError(
+                    "roi_crop_maxpool_grad: %s at %s differs from its "
+                    "fixed-point oracle or between launches" % (name, shape))
+            err = compare(torch, got, roi_ops.crop_resize_maxpool_grad(
+                feats, boxes, grad, 14, 2, 2), name, GRAD_TOL)
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            line = {"kernel": "roi_crop_maxpool_grad", "shape": label,
+                    "features": list(shape), "P": TRAIN_P,
+                    "dtype": name, "max_abs_err_exact": 0.0,
+                    "max_abs_err": err, "tol(rtol,atol)": GRAD_TOL[name],
+                    "run_to_run_max_abs_diff": 0.0}
+            if dtype == torch.bfloat16:
+                nbytes = (2 * feats.numel() * feats.element_size()
+                          + boxes.numel() * 4
+                          + grad.numel() * grad.element_size())
+                b_ms, b_by = bound_ms(nbytes, roi_pool.backward_flops(
+                    *boxes.shape[:2], feats.shape[-1], 14, 2, 2))
+                line.update(
+                    kernel_ms=cuda_ms(lambda: roi_pool.
+                                      roi_crop_maxpool_grad(
+                                          feats, boxes, grad, 14, 2, 2),
+                                      iters=20),
+                    plain_ms=cuda_ms(lambda: roi_ops.
+                                     crop_resize_maxpool_grad(
+                                         feats, boxes, grad, 14, 2, 2),
+                                     iters=2, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by)
+                line["kernel_over_bound"] = line["kernel_ms"] / b_ms
+                line.update(roi_pool.grad_atomic_counts(feats, boxes, grad,
+                                                        14, 2, 2))
+            log(json.dumps(line))
     if roi_pool.grad_generic_launches != first_generic:
-        raise AssertionError("roi_crop_maxpool_grad: a coco17 shape took "
-                             "the generic kernel")
+        raise AssertionError("roi_crop_maxpool_grad: a training shape "
+                             "took the generic kernel")
     log("roi_crop_maxpool_grad: %d launches in this phase (checks and "
         "timing), all staged" % (roi_pool.grad_launches - first))
     return result
@@ -1486,21 +1520,36 @@ def phase_fused_optimizer(torch):
 BN_FOLD_SETS = [  # (tag, config, convolutions, weights, trainable ones)
     ("coco17", "coco17_extend_match.pbtxt", 69, 10150080, 6999040),
     ("inc2", "voc07_inc2.pbtxt", 69, 10150080, 5893120),
+    # Every convolution with a gamma, epsilon 1e-5, block3 and block4
+    # trainable.
+    ("resnet101", RESNET_CONFIG, 104, 42394816, 40960000),
 ]
 BN_FOLD_STEP_HW = (256, 384)  # the step held bit for bit, plain against kernel
 
 
+def load_config(schema, config):
+    """A config under configs/ by file name, or a benchmark
+    configuration's pipeline text by its JSON file's path."""
+    if config.endswith(".json"):
+        with open(config) as f:
+            return schema.loads_pipeline(json.load(f)["pbtxt"])
+    return schema.load_pipeline(os.path.join("configs", config))
+
+
 def bn_fold_inputs(torch, config):
-    """A config's model with seeded weights and BN statistics drawn away
-    from the init's (so every inv, bias and product is a real one):
-    (the convolutions as ``bn_fold.fold`` takes them, their trainable
-    leaves as the optimizer's mask sets them)."""
+    """A config's model with seeded weights and BN statistics (and gammas,
+    where its BatchNorms have them) drawn away from the init's (so every
+    inv, scale, bias and product is a real one): (the convolutions as
+    ``bn_fold.fold`` takes them, (weights, beta, mean, var, gamma or
+    None), their trainable leaves as the optimizer's mask sets them, the
+    backbone's epsilon)."""
     from cap2det_tpu_torch.config import schema
-    from cap2det_tpu_torch.models import frcnn, inception_v2, registry
+    from cap2det_tpu_torch.kernels import bn_fold
+    from cap2det_tpu_torch.models import frcnn, registry
     from cap2det_tpu_torch.train import optimizers, trainer
     import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
 
-    cfg = schema.load_pipeline(os.path.join("configs", config))
+    cfg = load_config(schema, config)
     model = registry.build(cfg.model, is_training=True,
                            compute_dtype=torch.bfloat16)
     params = model.init_params(SEED)
@@ -1510,7 +1559,8 @@ def bn_fold_inputs(torch, config):
             if path.endswith("moving_variance"):
                 leaf.copy_(torch.rand(leaf.shape, generator=gen,
                                       device="cuda") * 2 + 0.01)
-            elif path.endswith(("moving_mean", "BatchNorm/beta")):
+            elif path.endswith(("moving_mean", "BatchNorm/beta",
+                                "BatchNorm/gamma")):
                 leaf.copy_(torch.randn(leaf.shape, generator=gen,
                                        device="cuda"))
     _, mask, _ = optimizers.build_optimizer(
@@ -1519,11 +1569,13 @@ def bn_fold_inputs(torch, config):
     trainer.set_trainable(params, mask)
     slots = []
     for scope in (frcnn.FIRST_SCOPE, frcnn.SECOND_SCOPE):
-        inception_v2._gather(params[scope], slots)
-    convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
-             for _, _, w, bn in slots]
-    leaves = [t for c in convs for t in c[:2] if t.requires_grad]
-    return convs, leaves
+        bn_fold.gather(params[scope], slots)
+    convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"],
+              bn.get("gamma")) for _, _, w, bn in slots]
+    leaves = [t for c in convs for t in (c[0], c[1], c[4])
+              if t is not None and t.requires_grad]
+    eps = frcnn.NETS[next(iter(params[frcnn.FIRST_SCOPE]))].BN_EPSILON
+    return convs, leaves, eps
 
 
 def bn_fold_upstream(torch, outputs, gen):
@@ -1531,18 +1583,39 @@ def bn_fold_upstream(torch, outputs, gen):
     in the layout cuDNN returns (channels-last beyond 1x1)."""
     grads = []
     for t in outputs:
-        g = torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+        g = torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
         if t.dim() == 4 and t.shape[-1] > 1:
             g = g.contiguous(memory_format=torch.channels_last)
         grads.append(g)
     return grads
 
 
-def fold_plain(convs, dtype):
-    """bn_fold.fold's plain version: the per-convolution chain."""
+def fold_plain(convs, dtype, eps=None):
+    """bn_fold.fold's plain version, with its arguments: the
+    per-convolution chain (each conv (weights, beta, mean, var[,
+    gamma]))."""
     from cap2det_tpu_torch.kernels import bn_fold
 
-    return [bn_fold.fold_reference(*c, dtype) for c in convs]
+    eps = bn_fold.BN_EPSILON if eps is None else eps
+    return [bn_fold.fold_reference(*c[:4], dtype, *c[4:], eps=eps)
+            for c in convs]
+
+
+def fold_grad_inputs(torch, bn_fold, convs, eps):
+    """A fold of `convs` kept for its backward, as ``bn_fold.fold`` makes
+    it while autograd records: (the plan, the scale buffer, the
+    arguments of each convolution's gamma gradient, seeded upstream
+    gradients of its weights and biases)."""
+    ws = [c[0] for c in convs]
+    gammas = [c[4] is not None for c in convs]
+    grad_g = [c[4] is not None and c[4].requires_grad for c in convs]
+    plan = bn_fold.plan(ws, [w.requires_grad for w in ws],
+                        [c[1].requires_grad for c in convs], gammas, grad_g)
+    out, scale = bn_fold._fold(plan, convs, torch.bfloat16, eps, True)
+    aux = [(c[0], c[2]) if g else None for c, g in zip(convs, grad_g)]
+    gen = torch.Generator(device=out.device).manual_seed(SEED + 23)
+    ups = bn_fold_upstream(torch, plan.outputs(out), gen)
+    return plan, scale, aux, ups[0::2], ups[1::2]
 
 
 def phase_bn_fold(torch):
@@ -1550,16 +1623,19 @@ def phase_bn_fold(torch):
     convolution of both stages, one more gives the trainable leaves'
     gradients) against their plain version (the per-convolution chain,
     bn_fold.fold_reference, and autograd through it) on the card, at the
-    trees and trainable sets of coco17_extend_match and voc07_inc2, with
-    seeded BN statistics: outputs in bfloat16 and float32 bit for bit
-    with the same strides, gradients bit for bit from seeded upstream
-    gradients (channels-last where cuDNN gives them so), one launch each;
-    then two training steps of each regime (bench.BenchStep at
+    trees and trainable sets of coco17_extend_match, voc07_inc2 and
+    coco17_resnet101 (104 convolutions, each with a gamma, epsilon 1e-5),
+    with seeded BN statistics and gammas: outputs in bfloat16 and float32
+    bit for bit with the same strides, the gradients of the weights,
+    betas and gammas bit for bit from seeded upstream gradients
+    (channels-last where cuDNN gives them so), one launch each; then two
+    training steps of each InceptionV2 regime (bench.BenchStep at
     BN_FOLD_STEP_HW, bf16, dropout on) with the fold's kernels against
     the plain chain under deterministic cuDNN: losses and params bit for
-    bit. Timed: the fold and its backward replayed from a CUDA graph and
-    launched from the host, the plain chain forward and backward, beside
-    the byte bound. Returns the kernels line's two rows (coco17's)."""
+    bit. Timed, each set: the fold and its backward replayed from a CUDA
+    graph and launched from the host, the plain chain forward and
+    backward, beside the byte bound. Returns {set: the kernels line's two
+    rows}."""
     from cap2det_tpu_torch import bench
     from cap2det_tpu_torch.kernels import bn_fold
     from cap2det_tpu_torch.train import optimizers
@@ -1567,7 +1643,7 @@ def phase_bn_fold(torch):
     rows = {}
     max_err = 0.0
     for tag, config, want_convs, want_weights, want_trainable in BN_FOLD_SETS:
-        convs, leaves = bn_fold_inputs(torch, config)
+        convs, leaves, eps = bn_fold_inputs(torch, config)
         weights = sum(c[0].numel() for c in convs)
         trainable = sum(c[0].numel() for c in convs if c[0].requires_grad)
         if (len(convs), weights, trainable) != (want_convs, want_weights,
@@ -1582,7 +1658,7 @@ def phase_bn_fold(torch):
             runs = []
             for fn in (bn_fold.fold, fold_plain):
                 before = (bn_fold.launches, bn_fold.grad_launches)
-                outs = [t for pair in fn(convs, dtype) for t in pair]
+                outs = [t for pair in fn(convs, dtype, eps) for t in pair]
                 diff = [t for t in outs if t.requires_grad]
                 gen.manual_seed(SEED + 22)
                 grads = torch.autograd.grad(
@@ -1618,43 +1694,41 @@ def phase_bn_fold(torch):
         # backward alone, and the plain chain's forward and backward.
         with torch.no_grad():
             def kernel():
-                bn_fold.fold(convs, torch.bfloat16)
+                bn_fold.fold(convs, torch.bfloat16, eps)
 
             def plain():
-                fold_plain(convs, torch.bfloat16)
+                fold_plain(convs, torch.bfloat16, eps)
 
             kernel_ms = device_ms(kernel, iters=20)
             host_ms = cuda_ms(kernel, iters=50)
             plain_ms = cuda_ms(plain, iters=20)
-        tensors = [t for c in convs for t in c]
-        needs = [t.requires_grad for t in tensors]
-        plan = bn_fold.plan(tensors[0::4], needs[0::4], needs[1::4])
-        out, inv = bn_fold._fold(plan, tensors, torch.bfloat16, True)
-        outs = plan.outputs(out)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
-        ups = bn_fold_upstream(torch, outs, gen)
-        g_w, g_b = ups[0::2], ups[1::2]
+        plan, scale, aux, g_w, g_b = fold_grad_inputs(torch, bn_fold, convs,
+                                                      eps)
 
         def grad_kernel():
-            bn_fold._fold_grad(plan, g_w, g_b, inv, torch.bfloat16)
-
-        at = [int(row["inv"]) for row in plan.table]
+            bn_fold._fold_grad(plan, g_w, g_b, aux, scale, torch.bfloat16)
 
         def grad_plain():
-            for i in range(len(convs)):
-                if plan.grad_w[i] or plan.grad_b[i]:
+            for i, row in enumerate(plan.table):
+                if plan.grad_w[i] or plan.grad_b[i] or plan.grad_g[i]:
+                    at, o = int(row["scale"]), len(g_b[i])
                     bn_fold.fold_grad_reference(
                         g_w[i] if plan.grad_w[i] else None,
                         g_b[i] if plan.grad_b[i] else None,
-                        inv[at[i]:at[i] + len(g_b[i])])
+                        scale[at:at + o], *(aux[i] or ()),
+                        *((scale[int(row["inv"]):][:o],) if aux[i]
+                          else ()))
 
         grad_ms = device_ms(grad_kernel, iters=20)
         grad_host_ms = cuda_ms(grad_kernel, iters=50)
         grad_plain_ms = cuda_ms(grad_plain, iters=20)
+        gammas = sum(c[0].numel() for c in convs
+                     if c[4] is not None and c[4].requires_grad)
         nbytes = bn_fold.fold_bytes(weights)
-        grad_bytes = bn_fold.fold_grad_bytes(trainable)
+        grad_bytes = bn_fold.fold_grad_bytes(trainable, gamma_numel=gammas)
         b_ms, b_by = bound_ms(nbytes, 3 * weights)
-        gb_ms, gb_by = bound_ms(grad_bytes, trainable)
+        gb_ms, gb_by = bound_ms(grad_bytes, bn_fold.fold_grad_flops(
+            trainable, gammas))
         rows[tag] = (
             {"kernel": "bn_fold", "set": tag, "kernel_ms": kernel_ms,
              "host_launched_ms": host_ms, "plain_ms": plain_ms,
@@ -1666,7 +1740,7 @@ def phase_bn_fold(torch):
              "bytes": grad_bytes, "kernel_over_bound": grad_ms / gb_ms})
         for row in rows[tag]:
             log(json.dumps(row))
-        del convs, leaves, tensors, out, inv, outs, ups, g_w, g_b
+        del convs, leaves, plan, scale, aux, g_w, g_b
         torch.cuda.empty_cache()
 
     # Whole steps, the fold's kernels against the plain chain.
@@ -1707,8 +1781,24 @@ def phase_bn_fold(torch):
         bn_fold.fold = real_fold
         torch.use_deterministic_algorithms(was_deterministic)
         torch.backends.cudnn.deterministic = False
-    fwd, grad = rows["coco17"]
-    return dict(fwd, max_abs_err=max_err), dict(grad, max_abs_err=max_err)
+    return {tag: tuple(dict(row, max_abs_err=max_err) for row in pair)
+            for tag, pair in rows.items()}
+
+
+def scale_resnet_gammas(torch, params):
+    """ResNet-101's gammas at TF's initial ones, with frozen statistics,
+    grow the activations through 33 stacked units until the loss
+    overflows in the second step (a checkpoint's statistics keep them in
+    range): the root's gammas scaled by 0.02 and each unit's conv3's by
+    0.2, the means of the benchmark's seeding."""
+    from cap2det_tpu_torch.train import optimizers
+
+    with torch.no_grad():
+        for path, leaf in optimizers.flatten_params(params):
+            if path.endswith("resnet_v1_101/conv1/BatchNorm/gamma"):
+                leaf.mul_(0.02)
+            elif path.endswith("/conv3/BatchNorm/gamma"):
+                leaf.mul_(0.2)
 
 
 def train_batch(rng, batch, hw, num_p, num_classes, pad):
@@ -1731,12 +1821,13 @@ def train_batch(rng, batch, hw, num_p, num_classes, pad):
 
 
 def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
-                breakdown, text=None):
+                breakdown, text=None, init=None):
     """Training steps at a config's full width with seeded He weights:
     launch counts per step, finite losses, frozen leaves unchanged,
     trainable weights moved, seconds per step, peak memory, and with
     `breakdown` one more step timed by span. `text`, where given, is the
-    config's text with its data files retargeted."""
+    config's text with its data files retargeted; `init`, where given,
+    changes the seeded params in place before the first step."""
     from cap2det_tpu_torch.config import schema
     from cap2det_tpu_torch.kernels import fused_optimizer, pool_grad, roi_pool
     from cap2det_tpu_torch.models import inception_v2, registry
@@ -1744,11 +1835,13 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
     import cap2det_tpu_torch.models  # noqa: F401  (registers the model)
 
     cfg = (schema.loads_pipeline(text) if text is not None
-           else schema.load_pipeline(os.path.join("configs", config)))
+           else load_config(schema, config))
     model = registry.build(cfg.model, is_training=True,
                            compute_dtype=torch.bfloat16)
     state, opt, schedule, mask = trainer.TrainState.create(
         model, cfg.train_config, SEED)
+    if init is not None:
+        init(torch, state["params"])
     step = trainer.make_train_step(model, opt, cfg.train_config, mask)
     rng = np.random.default_rng(SEED + 6)
     batch = model.device_batch(train_batch(
@@ -1757,7 +1850,7 @@ def phase_train(torch, config, batch_size, num_p, warmup, timed, want,
     flat_mask = dict(optimizers.flatten_params(mask))
     initial = {path: leaf.detach().clone() for path, leaf
                in optimizers.flatten_params(state["params"])}
-    tag = config.split(".")[0]
+    tag = os.path.basename(config).split(".")[0]
     log("train %s: batch %d, 1024x1536, P=%d, %d classes, %d trainable of "
         "%d leaves, lr %g, bf16 convolutions" % (
             tag, batch_size, num_p, model.num_classes,
@@ -4560,7 +4653,7 @@ def main(argv):
     torch.cuda.empty_cache()
     fused = phase_fused_optimizer(torch)
     torch.cuda.empty_cache()
-    fold, fold_grad = phase_bn_fold(torch)
+    folds = phase_bn_fold(torch)
     torch.cuda.empty_cache()
     coco = phase_train(
         torch, "coco17_extend_match.pbtxt", batch_size=2, num_p=TRAIN_P,
@@ -4573,6 +4666,13 @@ def main(argv):
         torch, "voc07_inc2.pbtxt", batch_size=1, num_p=2000, warmup=2,
         timed=5, breakdown=False,
         want=FROZEN_PER_STEP)
+    torch.cuda.empty_cache()
+    # ResNet-101 at the coco17 shape: block3 and block4 train; block4 has
+    # no pool, so no K4-K6.
+    resnet = phase_train(
+        torch, RESNET_CONFIG, batch_size=2, num_p=TRAIN_P, warmup=2,
+        timed=5, breakdown=False, want=RESNET_PER_STEP,
+        init=scale_resnet_gammas)
     torch.cuda.empty_cache()
     phase_bench(torch, coco, PER_STEP, FROZEN_PER_STEP)
     torch.cuda.empty_cache()
@@ -4630,17 +4730,26 @@ def main(argv):
         ("nms", "nms.cu", "ops/nms.py:23", nms),
         # No Pallas kernel: the BN fold's arithmetic, which XLA fuses into
         # the TPU's step program.
-        ("bn_fold", "bn_fold.cu", "models/inception_v2.py:265", fold),
+        ("bn_fold", "bn_fold.cu", "models/inception_v2.py:265",
+         folds["coco17"][0]),
         ("bn_fold_grad", "bn_fold.cu", "models/inception_v2.py:265",
-         fold_grad),
+         folds["coco17"][1]),
     ]
     # Each kernel's launches on its path: training's for the six, serving's
     # (the serve phase's three images) for NMS.
     launches = dict(launches, nms=serve_launches["nms"])
+    # ResNet-101's fold and its backward (the JAX package has no such
+    # backbone), with the launches of its training phase.
+    rows += [(name + ".resnet101", "bn_fold.cu", None, r)
+             for name, r in zip(("bn_fold", "bn_fold_grad"),
+                                folds["resnet101"])]
+    launches.update({name + ".resnet101": resnet["launches"][name]
+                     // len(resnet["step_s"])
+                     for name in ("bn_fold", "bn_fold_grad")})
     kernels = [
         {"name": name, "route": "cuda",
          "source": "cap2det_tpu_torch/csrc/" + source,
-         "replaces": "cap2det_tpu/" + replaces,
+         "replaces": replaces and "cap2det_tpu/" + replaces,
          "launches": launches[name], "max_abs_err": r["max_abs_err"],
          "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

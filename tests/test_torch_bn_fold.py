@@ -18,6 +18,11 @@ per-convolution chain, ``fold_reference``.
   give the same bits.
 * ``FoldPlan``'s offsets, chunks and alignment; the walk writes every
   output once.
+* ResNet-101's 104 convolutions, each with a gamma, at epsilon 1e-5, in
+  one fold: the walked kernels equal ``fold_reference`` bit for bit
+  forward, and gamma's gradient, summed in ``channel_sum``'s order, too;
+  the plain versions' scale and epsilon arguments against their
+  formulas and autograd.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from cap2det_tpu_torch import kernels
 from cap2det_tpu_torch import params as params_lib
 from cap2det_tpu_torch.kernels import bn_fold
-from cap2det_tpu_torch.models import frcnn, inception_v2
+from cap2det_tpu_torch.models import frcnn, inception_v2, resnet_v1
 
 
 # -- the former fold, kept as the oracle ------------------------------------
@@ -51,7 +56,7 @@ def _chain_prepare(params, compute_dtype):
     out = {}
     for key, value in params.items():
         if "depthwise_weights" in value:
-            out[key] = _fold_bn(inception_v2._compose_separable(value),
+            out[key] = _fold_bn(bn_fold.compose_separable(value),
                                 value["BatchNorm"], compute_dtype)
         elif "weights" in value:
             out[key] = _fold_bn(value["weights"], value["BatchNorm"],
@@ -117,7 +122,7 @@ def _with_trainable(tree, regime):
 def _convs(params):
     slots = []
     for scope in SCOPES:
-        inception_v2._gather(params[scope], slots)
+        bn_fold.gather(params[scope], slots)
     return [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
             for _, _, w, bn in slots]
 
@@ -131,22 +136,29 @@ def _flat(t):
     return t.as_strided((n,), (1,), 0), t.storage_offset()
 
 
-def _walk_fold(plan, tensors, dtype):
+def _walk_fold(plan, convs, dtype, eps=bn_fold.BN_EPSILON):
     """csrc/bn_fold.cu fold_kernel's arithmetic over plan.fwd_chunks: the
-    output buffer, the inv buffer and how often each output was written."""
+    output buffer, the scale buffer and how often each output was
+    written. `convs`: (weights, beta, mean, var, gamma or None) each."""
     out = torch.zeros(plan.out_total, dtype=dtype)
-    inv_buf = torch.zeros(plan.inv_total)
+    scale_buf = torch.zeros(plan.scale_total)
     written = torch.zeros(plan.out_total, dtype=torch.int32)
     for conv, start, length, kind in plan.fwd_chunks.tolist():
         row = plan.table[conv]
-        w, beta, mean, var = (t.detach() for t in tensors[4 * conv:
-                                                          4 * conv + 4])
+        w, beta, mean, var, gamma = (None if t is None else t.detach()
+                                     for t in convs[conv])
+
+        def scale(o):
+            inv = torch.rsqrt(var[o] + eps)
+            return inv if gamma is None else gamma[o] * inv
+
         j = torch.arange(start, start + length)
         if kind == bn_fold.BIAS:
-            inv = torch.rsqrt(var[j] + bn_fold.BN_EPSILON)
             at = int(row["out_b"]) + j
-            out[at] = (beta[j] - mean[j] * inv).to(dtype)
-            inv_buf[int(row["inv"]) + j] = inv
+            out[at] = (beta[j] - mean[j] * scale(j)).to(dtype)
+            scale_buf[int(row["scale"]) + j] = scale(j)
+            if row["inv"] >= 0:
+                scale_buf[int(row["inv"]) + j] = torch.rsqrt(var[j] + eps)
         else:
             cin, taps = int(row["in_channels"]), int(row["taps"])
             o = j // (cin * taps)
@@ -156,12 +168,40 @@ def _walk_fold(plan, tensors, dtype):
             v = flat[base + o * int(row["w_stride_o"])
                      + ci * int(row["w_stride_i"]) + s]
             at = int(row["out_w"]) + j
-            out[at] = (v * torch.rsqrt(var[o] + bn_fold.BN_EPSILON)).to(dtype)
+            out[at] = (v * scale(o)).to(dtype)
         written[at] += 1
-    return out, inv_buf, written
+    return out, scale_buf, written
 
 
-def _walk_fold_grad(plan, g_w, g_b, inv_buf):
+def _walk_gamma(row, g, gb, w, mean, scale_buf, channels):
+    """fold_grad_kernel's gamma chunk: per output channel a warp's 32
+    lanes each add their elements (j, j + 32, ...) in turn, then the lanes
+    are added pairwise (xor 16, 8, 4, 2, 1)."""
+    cin, taps = int(row["in_channels"]), int(row["taps"])
+    n = cin * taps
+    channels_last = (not g.is_contiguous()) or taps == 1
+    j = torch.arange(n)
+    s, ci = j // cin, j % cin
+    o = channels[:, None]
+    gflat, gbase = _flat(g)
+    wflat, wbase = _flat(w)
+    gv = gflat[gbase + o * n + (j if channels_last else ci * taps + s)]
+    wv = wflat[wbase + o * int(row["w_stride_o"])
+               + ci * int(row["w_stride_i"]) + s]
+    prod = gv.float() * wv
+    lanes = torch.zeros((len(channels), 32))
+    for k in range(0, n, 32):
+        part = prod[:, k:k + 32]
+        lanes[:, :part.shape[1]] = lanes[:, :part.shape[1]] + part
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ off]
+    acc = lanes[:, 0]
+    if gb is not None:
+        acc = acc - gb[channels].float() * mean[channels]
+    return acc * scale_buf[int(row["inv"]) + channels]
+
+
+def _walk_fold_grad(plan, g_w, g_b, aux, scale_buf):
     """fold_grad_kernel's arithmetic over plan.bwd_chunks."""
     grad = torch.zeros(plan.grad_total)
     written = torch.zeros(plan.grad_total, dtype=torch.int32)
@@ -171,6 +211,10 @@ def _walk_fold_grad(plan, g_w, g_b, inv_buf):
         if kind == bn_fold.BIAS:
             at = int(row["grad_b"]) + j
             grad[at] = g_b[conv][j].float()
+        elif kind == bn_fold.GAMMA:
+            at = int(row["grad_g"]) + j
+            grad[at] = _walk_gamma(row, g_w[conv], g_b[conv], *aux[conv],
+                                   scale_buf, j)
         else:
             g = g_w[conv]
             cin, taps = int(row["in_channels"]), int(row["taps"])
@@ -181,7 +225,8 @@ def _walk_fold_grad(plan, g_w, g_b, inv_buf):
             flat, base = _flat(g)
             src = (o * cin * taps + s * cin + ci) if gather else j
             at = int(row["grad_w"]) + j
-            grad[at] = flat[base + src].float() * inv_buf[int(row["inv"]) + o]
+            grad[at] = (flat[base + src].float()
+                        * scale_buf[int(row["scale"]) + o])
         written[at] += 1
     return grad, written
 
@@ -191,28 +236,29 @@ def walk_the_kernels(monkeypatch):
     its launches replaced by the walks (and counted as launches)."""
     from cap2det_tpu_torch.utils.spans import span
 
-    def launch(plan, tensors, out, inv):
-        got, got_inv, written = _walk_fold(plan, tensors, out.dtype)
+    def launch(plan, convs, out, scale, eps):
+        got, got_scale, written = _walk_fold(plan, convs, out.dtype, eps)
         assert int(written.max()) == 1
         out.copy_(got)
-        if inv is not None:
-            inv.copy_(got_inv)
+        if scale is not None:
+            scale.copy_(got_scale)
         bn_fold.launches += 1
 
-    def launch_grad(plan, g_w, g_b, inv, grad, dtype):
+    def launch_grad(plan, g_w, g_b, aux, scale, grad, dtype):
         for i, g in enumerate(g_w):
-            if plan.grad_w[i]:
+            if g is not None:
                 bn_fold._grad_flags(i, g, plan.shapes[i], dtype)
-        got, written = _walk_fold_grad(plan, g_w, g_b, inv)
+        got, written = _walk_fold_grad(plan, g_w, g_b, aux, scale)
         assert int(written.max()) == 1
         grad.copy_(got)
         bn_fold.grad_launches += 1
 
-    def fold(convs, dtype=torch.bfloat16):
+    def fold(convs, dtype=torch.bfloat16, eps=bn_fold.BN_EPSILON):
         if not convs:
             return []
+        convs = [tuple(c) + (None,) * (5 - len(c)) for c in convs]
         with span("cap2det/kernel/bn_fold"):
-            return bn_fold._fold_kernels(convs, dtype)
+            return bn_fold._fold_kernels(convs, dtype, eps)
 
     monkeypatch.setattr(bn_fold, "launches", bn_fold.launches)
     monkeypatch.setattr(bn_fold, "grad_launches", bn_fold.grad_launches)
@@ -381,22 +427,22 @@ def test_plan_offsets_chunks_and_alignment(tree, regime):
     table = plan.table
     assert len(table) == 69
     spans = {"out": [], "grad": []}
-    inv_at = 0
+    scale_at = 0
     for i, (w, row) in enumerate(zip(ws, table)):
         o, c, kh, kw = w.shape
         assert (row["out_channels"], row["in_channels"], row["taps"]) == (
             o, c, kh * kw)
         assert (row["w_stride_o"], row["w_stride_i"]) == w.stride()[:2]
         spans["out"] += [(row["out_w"], w.numel()), (row["out_b"], o)]
-        assert row["inv"] == inv_at
-        inv_at += o
+        assert row["scale"] == scale_at and row["inv"] == -1
+        scale_at += o
         assert (row["grad_w"] >= 0) == grad_w[i]
         assert (row["grad_b"] >= 0) == grad_b[i]
         if grad_w[i]:
             spans["grad"].append((row["grad_w"], w.numel()))
         if grad_b[i]:
             spans["grad"].append((row["grad_b"], o))
-    assert plan.inv_total == max(inv_at, 1)
+    assert plan.scale_total == max(scale_at, 1)
     for name, total in (("out", plan.out_total), ("grad", plan.grad_total)):
         at = 0
         for start, n in spans[name]:
@@ -428,11 +474,13 @@ def test_plan_offsets_chunks_and_alignment(tree, regime):
 
 
 def test_plan_refuses_more_convolutions_than_a_launch_takes():
-    structure = tuple((((8, 8, 1, 1)), (8, 1, 1, 1))
+    structure = tuple(((((8, 8, 1, 1)), (8, 1, 1, 1)), False)
                       for _ in range(bn_fold.MAX_CONVS + 1))
+    none = (False,) * len(structure)
     with pytest.raises(ValueError, match="at most"):
-        bn_fold.FoldPlan(structure, (False,) * len(structure),
-                         (False,) * len(structure))
+        bn_fold.FoldPlan(structure, none, none, none)
+    assert len(bn_fold.FoldPlan(structure[1:], none[1:], none[1:],
+                                none[1:]).table) == bn_fold.MAX_CONVS
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -445,7 +493,8 @@ def test_the_kernels_walk_of_the_tables_equals_the_plain_version(tree,
     plan = bn_fold.plan(tensors[0::4], [t.requires_grad
                                         for t in tensors[0::4]],
                         [t.requires_grad for t in tensors[1::4]])
-    out, inv_buf, written = _walk_fold(plan, tensors, dtype)
+    out, inv_buf, written = _walk_fold(
+        plan, [tuple(c) + (None,) for c in convs], dtype)
     views = plan.outputs(out)
     with torch.no_grad():
         want = [t for c in convs
@@ -464,20 +513,21 @@ def test_the_kernels_walk_of_the_tables_equals_the_plain_version(tree,
             g = g.contiguous(memory_format=torch.channels_last)
         g_w.append(g)
         g_b.append(torch.randn(beta.shape, generator=gen).to(dtype))
-    grad, written = _walk_fold_grad(plan, g_w, g_b, inv_buf)
+    grad, written = _walk_fold_grad(plan, g_w, g_b, None, inv_buf)
     assert int(written.max()) == 1
     got = plan.gradients(grad)
     for i, (w, beta, mean, var) in enumerate(convs):
         inv = torch.rsqrt(var.detach() + bn_fold.BN_EPSILON)
-        dw, dbeta = bn_fold.fold_grad_reference(g_w[i], g_b[i], inv)
+        dw, dbeta, dgamma = bn_fold.fold_grad_reference(g_w[i], g_b[i], inv)
+        assert dgamma is None and got[3 * i + 2] is None
         if plan.grad_w[i]:
-            assert torch.equal(got[2 * i], dw)
+            assert torch.equal(got[3 * i], dw)
         else:
-            assert got[2 * i] is None
+            assert got[3 * i] is None
         if plan.grad_b[i]:
-            assert torch.equal(got[2 * i + 1], dbeta)
+            assert torch.equal(got[3 * i + 1], dbeta)
         else:
-            assert got[2 * i + 1] is None
+            assert got[3 * i + 1] is None
 
 
 @pytest.mark.parametrize("config", ["coco17_extend_match", "voc07_inc2"])
@@ -513,3 +563,129 @@ def test_train_steps_through_the_kernels_equal_the_chain(monkeypatch,
     assert [p for p, _ in got] == [p for p, _ in want]
     for (path, a), (_, b) in zip(got, want):
         assert torch.equal(a, b), path
+
+
+# -- a scale and an epsilon: ResNet-101 ---------------------------------------
+
+
+def test_fold_reference_takes_a_scale_and_an_epsilon():
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn((6, 4, 3, 3), generator=gen)
+    beta, mean, gamma = (torch.randn(6, generator=gen) for _ in range(3))
+    var = torch.rand(6, generator=gen) * 0.01 + 1e-4
+    for eps, g in ((1e-5, gamma), (1e-5, None), (1e-3, gamma)):
+        weight, bias = bn_fold.fold_reference(w, beta, mean, var,
+                                              torch.float32, g, eps)
+        inv = torch.rsqrt(var + eps)
+        scale = inv if g is None else g * inv
+        assert torch.equal(weight, (w * scale[:, None, None, None])
+                           .contiguous(memory_format=torch.channels_last))
+        assert weight.stride() == w.contiguous(
+            memory_format=torch.channels_last).stride()
+        assert torch.equal(bias, beta - mean * scale)
+    # The default is InceptionV2's epsilon, and no scale.
+    assert all(map(torch.equal,
+                   bn_fold.fold_reference(w, beta, mean, var, torch.float32),
+                   bn_fold.fold_reference(w, beta, mean, var, torch.float32,
+                                          None, 1e-3)))
+
+
+def test_fold_grad_reference_is_autograd_of_the_plain_fold():
+    """dweights and dbeta are autograd's bits through the plain ops;
+    dgamma, summed in ``channel_sum``'s order, is within float32
+    round-off of autograd's, and exactly the walk of the kernel's warp."""
+    gen = torch.Generator().manual_seed(12)
+    w = torch.randn((40, 24, 3, 3), generator=gen)
+    beta, mean, gamma = (torch.randn(40, generator=gen) for _ in range(3))
+    var = torch.rand(40, generator=gen) + 0.1
+    leaves = [t.clone().requires_grad_() for t in (w, beta, gamma)]
+    inv = torch.rsqrt(var + 1e-5)
+    scale = leaves[2] * inv
+    weight = (leaves[0] * scale[:, None, None, None]).to(torch.bfloat16)
+    bias = (leaves[1] - mean * scale).to(torch.bfloat16)
+    g_w = torch.randn(weight.shape, generator=gen).to(torch.bfloat16)
+    g_w = g_w.contiguous(memory_format=torch.channels_last)
+    g_b = torch.randn(bias.shape, generator=gen).to(torch.bfloat16)
+    want = torch.autograd.grad((weight, bias), leaves, (g_w, g_b))
+    dw, dbeta, dgamma = bn_fold.fold_grad_reference(
+        g_w, g_b, (gamma * inv), w, mean, inv)
+    assert torch.equal(dw, want[0]) and torch.equal(dbeta, want[1])
+    torch.testing.assert_close(dgamma, want[2], rtol=1e-5, atol=1e-5)
+    row = {"in_channels": 24, "taps": 9, "w_stride_o": 24 * 9,
+           "w_stride_i": 9, "inv": 0}
+    walked = _walk_gamma(row, g_w, g_b, w, mean, inv, torch.arange(40))
+    assert torch.equal(dgamma, walked)
+    # Without a gamma there is no dgamma; either gradient may be missing.
+    assert bn_fold.fold_grad_reference(g_w, None, inv)[1:] == (None, None)
+
+
+@pytest.fixture(scope="module")
+def resnet_tree():
+    """ResNet-101's both stages, seeded, with every BN statistic and gamma
+    drawn away from the init's."""
+    rng = np.random.default_rng(6)
+    numpy_tree = {
+        frcnn.FIRST_SCOPE: resnet_v1.init_first_stage_params_numpy(rng),
+        frcnn.SECOND_SCOPE: resnet_v1.init_second_stage_params_numpy(rng),
+    }
+    for path, leaf in _leaves(numpy_tree):
+        if path[-1] == "moving_variance":
+            leaf[...] = rng.uniform(0.01, 2.0, leaf.shape)
+        elif path[-1] in ("moving_mean", "beta", "gamma"):
+            leaf[...] = rng.normal(0.0, 1.0, leaf.shape)
+    return params_lib.from_jax_numpy(numpy_tree, "cpu")
+
+
+def _resnet_trains(path):
+    """coco17_resnet101's trainable leaves: block3's and block4's
+    weights, betas and gammas."""
+    return (path[-1] in ("weights", "beta", "gamma")
+            and (path[0] == frcnn.SECOND_SCOPE or "block3" in path))
+
+
+def test_resnet_folds_in_one_launch_each_way_as_the_plain_version(
+        resnet_tree, kernels_walked):
+    for path, leaf in _leaves(resnet_tree):
+        leaf.requires_grad_(_resnet_trains(path))
+    trainable = [(p, leaf) for p, leaf in _leaves(resnet_tree)
+                 if leaf.requires_grad]
+    assert len(trainable) == 3 * 80
+    runs = {}
+    for name in ("kernels", "plain"):
+        before = (bn_fold.launches, bn_fold.grad_launches)
+        if name == "kernels":
+            prepared = frcnn.prepare(resnet_tree, torch.bfloat16)
+        else:
+            slots = []
+            trees = [bn_fold.gather(resnet_tree[s], slots)
+                     for s in SCOPES]
+            for out, key, w, bn in slots:
+                weight, bias = bn_fold.fold_reference(
+                    w, bn["beta"], bn["moving_mean"], bn["moving_variance"],
+                    torch.bfloat16, bn["gamma"], resnet_v1.BN_EPSILON)
+                out[key] = {"weight": weight, "bias": bias}
+            prepared = dict(zip(SCOPES, trees))
+        outs = list(_leaves(prepared))
+        diff = [t for _, t in outs if t.requires_grad]
+        gen = torch.Generator().manual_seed(13)
+        upstream = []
+        for t in diff:
+            g = torch.randn(t.shape, generator=gen).to(t.dtype)
+            if t.dim() == 4 and t.shape[-1] > 1:
+                g = g.contiguous(memory_format=torch.channels_last)
+            upstream.append(g)
+        grads = torch.autograd.grad(diff, [leaf for _, leaf in trainable],
+                                    upstream)
+        runs[name] = (outs, len(diff), grads,
+                      (bn_fold.launches - before[0],
+                       bn_fold.grad_launches - before[1]))
+    (outs, n_diff, grads, launched) = runs["kernels"]
+    (want, want_diff, want_grads, _) = runs["plain"]
+    assert launched == (1, 1)
+    assert len(outs) == 2 * 104 and n_diff == want_diff == 2 * 80
+    for (path, a), (_, b) in zip(outs, want):
+        assert a.stride() == b.stride() and torch.equal(a, b), path
+    for (path, _), a, b in zip(trainable, grads, want_grads):
+        assert a.dtype == torch.float32 and torch.equal(a, b), path
+    for _, leaf in _leaves(resnet_tree):
+        leaf.requires_grad_(False)

@@ -18,7 +18,7 @@ from cap2det_tpu_torch.data import pipeline
 from cap2det_tpu_torch.eval import evaluator
 from cap2det_tpu_torch.kernels import (bn_fold, build, fused_optimizer, nms,
                                        pool_grad, roi_pool)
-from cap2det_tpu_torch.models import frcnn, inception_v2, registry
+from cap2det_tpu_torch.models import frcnn, inception_v2, registry, resnet_v1
 from cap2det_tpu_torch.ops import nms as nms_ops
 from cap2det_tpu_torch.ops import roi as roi_ops
 from cap2det_tpu_torch.train import optimizers, trainer
@@ -92,9 +92,10 @@ ROI_CASES = [((2, 9, 12, 20), 13, 14, 2, 2, "mixed"),
              ((1, 76, 114, 576), 301, 14, 2, 2, "narrow"),
              ((1, 76, 114, 576), 301, 14, 2, 2, "wide"),
              ((1, 64, 64, 64), 9, 40, 2, 2, "mixed"),
-             ((1, 12, 14, 1030), 9, 14, 2, 2, "mixed")]
+             ((1, 12, 14, 1030), 9, 14, 2, 2, "mixed"),
+             ((1, 76, 114, 1024), 301, 14, 2, 2, "mixed")]
 ROI_IDS = ["small", "serving_width", "k3s1", "untiled", "serving_narrow",
-           "serving_wide", "crop40_generic", "c1030"]
+           "serving_wide", "crop40_generic", "c1030", "resnet_width"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -181,9 +182,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
      ((2, 64, 96, 576), 100, 14, 2, 2, "narrow"),
      ((2, 64, 96, 576), 100, 14, 2, 2, "wide"),
      ((1, 12, 14, 64), 9, 6, 3, 1, "mixed"),
-     ((1, 64, 64, 64), 9, 40, 2, 2, "mixed")],
+     ((1, 64, 64, 64), 9, 40, 2, 2, "mixed"),
+     ((2, 64, 96, 1024), 100, 14, 2, 2, "mixed")],
     ids=["small", "coco_width", "k3s1", "coco_narrow", "coco_wide",
-         "k3s1_staged", "crop40_generic"])
+         "k3s1_staged", "crop40_generic", "resnet_width"])
 def test_roi_grad_kernel_matches_plain(cuda, dtype, quantised, shape, num_p,
                                        crop, k, s, box_kind):
     """K2 equals its fixed-point oracle bit for bit, and the float32 plain
@@ -1055,14 +1057,17 @@ def _fold_convs(cuda, regime):
         leaf.requires_grad_(scope_trains and path[-1] in ("weights", "beta"))
     slots = []
     for scope in (frcnn.FIRST_SCOPE, frcnn.SECOND_SCOPE):
-        inception_v2._gather(params[scope], slots)
+        bn_fold.gather(params[scope], slots)
     convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"])
              for _, _, w, bn in slots]
     return convs, [t for c in convs for t in c[:2] if t.requires_grad]
 
 
-def _fold_plain(convs, dtype):
-    return [bn_fold.fold_reference(*c, dtype) for c in convs]
+def _fold_plain(convs, dtype, eps=bn_fold.BN_EPSILON):
+    """``bn_fold.fold``'s plain version, with its arguments: each conv
+    (weights, beta, mean, var[, gamma])."""
+    return [bn_fold.fold_reference(*c[:4], dtype, *c[4:], eps=eps)
+            for c in convs]
 
 
 @pytest.mark.parametrize("regime", ["coco17", "voc07", "none"])
@@ -1099,6 +1104,67 @@ def test_bn_fold_kernels_match_plain(cuda, dtype, regime):
     (got, got_diff, got_g, launched), (want, want_diff, want_g, _) = runs
     assert launched == (1, int(bool(leaves)))
     assert got_diff == want_diff == len(leaves)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == dtype, i
+        assert a.shape == b.shape and a.stride() == b.stride(), i
+        assert torch.equal(a, b), i
+    for i, (a, b) in enumerate(zip(got_g, want_g)):
+        assert a.shape == b.shape and torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_bn_fold_resnet_kernels_match_plain(cuda, dtype):
+    """ResNet-101's 104 convolutions, each with a gamma, at epsilon 1e-5
+    and seeded BN statistics, in one launch against ``fold_reference``:
+    outputs bit for bit; from the same upstream gradients the weights',
+    betas' and gammas' gradients of coco17_resnet101's trainable set
+    (block3, block4) bit for bit with ``fold_grad_reference``'s, gamma's
+    summed in ``channel_sum``'s order, in one more launch."""
+    from cap2det_tpu_torch import params as params_lib
+
+    rng = np.random.default_rng(10)
+    tree = {frcnn.FIRST_SCOPE: resnet_v1.init_first_stage_params_numpy(rng),
+            frcnn.SECOND_SCOPE: resnet_v1.init_second_stage_params_numpy(rng)}
+    for path, leaf in _fold_leaves(tree):
+        if path[-1] == "moving_variance":
+            leaf[...] = rng.uniform(0.01, 2.0, leaf.shape)
+        elif path[-1] in ("moving_mean", "beta", "gamma"):
+            leaf[...] = rng.normal(0.0, 1.0, leaf.shape)
+    params = params_lib.from_jax_numpy(tree, cuda)
+    for path, leaf in _fold_leaves(params):
+        leaf.requires_grad_(path[-1] in ("weights", "beta", "gamma") and (
+            path[0] == frcnn.SECOND_SCOPE or "block3" in path))
+    slots = []
+    for scope in (frcnn.FIRST_SCOPE, frcnn.SECOND_SCOPE):
+        bn_fold.gather(params[scope], slots)
+    convs = [(w, bn["beta"], bn["moving_mean"], bn["moving_variance"],
+              bn["gamma"]) for _, _, w, bn in slots]
+    leaves = [t for c in convs for t in (c[0], c[1], c[4]) if t.requires_grad]
+    assert (len(convs), len(leaves)) == (104, 240)
+    runs = []
+    for fn in (lambda: bn_fold.fold(convs, dtype, resnet_v1.BN_EPSILON),
+               lambda: [bn_fold.fold_reference(*c[:4], dtype, c[4],
+                                               resnet_v1.BN_EPSILON)
+                        for c in convs]):
+        before = (bn_fold.launches, bn_fold.grad_launches)
+        outs = [t for pair in fn() for t in pair]
+        diff = [t for t in outs if t.requires_grad]
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        upstream = []
+        for t in diff:
+            g = torch.randn(t.shape, generator=gen, device=cuda).to(dtype)
+            if t.dim() == 4 and t.shape[-1] > 1:
+                g = g.contiguous(memory_format=torch.channels_last)
+            upstream.append(g)
+        grads = torch.autograd.grad(diff, leaves, upstream)
+        torch.cuda.synchronize()
+        runs.append((outs, len(diff), grads,
+                     (bn_fold.launches - before[0],
+                      bn_fold.grad_launches - before[1])))
+    (got, got_diff, got_g, launched), (want, want_diff, want_g, _) = runs
+    assert launched == (1, 1)
+    assert got_diff == want_diff == 2 * 80
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype == dtype, i
         assert a.shape == b.shape and a.stride() == b.stride(), i

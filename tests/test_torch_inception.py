@@ -262,10 +262,10 @@ def test_dense_avg_pool_refuses_asymmetric_padding():
     """Every avg pool of the network is 3x3/s1 (symmetric SAME padding);
     an asymmetric one raises rather than taking another path."""
     x = torch.ones(1, 2, 8, 8)
-    got = inception_v2.pool_dense(x, "pool_avg", 3, 1)
+    got = pool_grad.pool_dense(x, "pool_avg", 3, 1)
     assert torch.equal(got, x)
     with pytest.raises(ValueError, match="asymmetric"):
-        inception_v2.pool_dense(x, "pool_avg", 3, 2)
+        pool_grad.pool_dense(x, "pool_avg", 3, 2)
 
 
 def test_stem_pads_asymmetrically_like_tf(trees):

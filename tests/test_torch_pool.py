@@ -10,7 +10,6 @@ import torch
 from cap2det_tpu.kernels import pool_grad as jax_pool_grad
 from cap2det_tpu.models import inception_v2 as jax_inception
 from cap2det_tpu_torch.kernels import pool_grad
-from cap2det_tpu_torch.models import inception_v2
 
 torch.set_num_threads(1)
 
@@ -54,7 +53,7 @@ def test_first_stage_pool_matches_jax(kind, k, s):
     """The first stage's large-map pools (plain torch on NCHW views)."""
     x = _x(1, 2, 24, 30, 8)
     nchw = torch.from_numpy(x).permute(0, 3, 1, 2)
-    got = inception_v2.pool_dense(nchw, kind, k, s).permute(0, 2, 3, 1)
+    got = pool_grad.pool_dense(nchw, kind, k, s).permute(0, 2, 3, 1)
     want = np.asarray(jax_inception._pool_fast(x, kind, k, s))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
